@@ -4,12 +4,23 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card, runs the streaming
-executors, then drives the main path through the port's own entry point:
-``repro_torch.launch.serve`` serving GPT-Neo-1.3B and GPT-Neo-S (full width,
-full depth, seq 1024, random weights from a seed) under a 2048 MiB weight
-pool, and a short online replay. Any failed check raises and the script
-exits non-zero without its last line. It imports nothing of JAX or of the
-JAX package, needs one card, and exits non-zero without one.
+executors, then drives each path through the port's own entry points:
+
+* serving: ``repro_torch.launch.serve`` serving GPT-Neo-1.3B and GPT-Neo-S
+  (full width, full depth, seq 1024, random weights from a seed) under a
+  2048 MiB weight pool, and a short online replay (``streamed_matmul``,
+  ``flash_attention``);
+* the model path: Mamba-2-130M (full width, all 24 layers, random weights
+  from a seed) through ``models.model.make_step_bundle``, three prefill
+  requests at batch 4 x 4096 tokens (``ssd_scan`` in every layer), greedy
+  decode, and decode against prefill;
+* ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
+  bf16 (``layout_pack``).
+
+The launch counts are set to 0 just before each path and read just after.
+Any failed check raises and the script exits non-zero without its last
+line. It imports nothing of JAX or of the JAX package, needs one card, and
+exits non-zero without one.
 
 The last lines are the kernels' launch counts, the card's name and power
 limit as ``nvidia-smi`` reports them, one JSON object with each kernel's
@@ -23,6 +34,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from unittest import mock
 from dataclasses import replace
 from pathlib import Path
 
@@ -42,10 +54,27 @@ SEQ = 1024
 REQUESTS = 4
 BUDGET_MB = 2048
 TIMED = 20          # timed launches per median, after 3 untimed ones
-SOURCES = {"streamed_matmul": "src/repro_torch/kernels/csrc/streamed_matmul.cu",
-           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+MAMBA = "mamba2-130m"
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_REQUESTS = 4, 4096, 3
+DECODE_STEPS = 32
+CONSIST_BATCH, CONSIST_SEQ = 2, 256
+# Mamba-2 logits of two runs that differ only in the order of the SSD's
+# f32 sums (kernel vs ssd_chunked in prefill, or the recurrence step by
+# step in decode vs the chunked scan): with these random weights the bf16
+# residual stream of 24 layers amplifies such differences to a max abs
+# error of 0.02-0.03 and a relative L2 error of about 4% on logits up to
+# about 0.6 (what these two checks read on an H100). The checks allow
+# twice that. A near-tie can then change the argmax, so decode's pick must
+# be within LOGIT_ATOL of the prefill's best logit; whether the argmax is
+# the same is printed.
+LOGIT_ATOL = 6e-2
+LOGIT_REL_L2 = 0.1
+SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in
+           ("streamed_matmul", "flash_attention", "ssd_scan", "layout_pack")}
 REPLACES = {"streamed_matmul": "src/repro/kernels/streamed_matmul.py:66",
-            "flash_attention": "src/repro/kernels/flash_attention.py:111"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:111",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:97",
+            "layout_pack": "src/repro/kernels/layout_pack.py:37"}
 
 
 def log(*parts):
@@ -104,17 +133,41 @@ def bound_ms(flops: float, nbytes: float, peaks):
 
 
 def shape_work(kernel: str, key):
-    """(FLOPs, bytes) one f32 launch at the wrapper's shape ``key`` needs:
-    each input read once, the output written once; causal attention counts
-    the s(s+1)/2 visible (q, k) pairs per head, 2 hd FLOPs each for QK^T
-    and for PV."""
+    """(FLOPs, bytes) one launch at the wrapper's shape ``key`` needs: each
+    input read once, the output written once. Matmul and attention in f32;
+    causal attention counts the s(s+1)/2 visible (q, k) pairs per head, 2 hd
+    FLOPs each for QK^T and for PV. The SSD scan (f32) counts, per chunk of
+    Q, the Q(Q+1)/2 causal pairs once for C B^T (shared by the heads, 2N
+    each) and per head for the product with X (2P each), plus C . state and
+    the state update (2QNP each per head). Packing moves bytes only: R x C
+    read, the padded output written."""
     if kernel == "streamed_matmul":
         m, k, n = key
         return 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+    if kernel == "ssd_scan":
+        b, s, h, p, n, q = key
+        pairs = q * (q + 1) / 2
+        flops = b * (s // q) * (h * (2 * pairs * p + 4 * q * n * p)
+                                + 2 * pairs * n)
+        return flops, 4.0 * (2 * b * s * h * p + 2 * b * s * n + b * s * h
+                             + 2 * h)
+    if kernel == "layout_pack":
+        r, c, tr, tc, dtype = key
+        padded = -(-r // tr) * tr * (-(-c // tc) * tc)
+        return 0.0, float(dtype.itemsize) * (r * c + padded)
     b, sq, sk, hq, hkv, hd, causal, window = key
     check(sq == sk and window == 0, f"attention work at {key}")
     pairs = sq * (sq + 1) / 2 if causal else sq * sk
     return 4.0 * hd * pairs * hq * b, 4.0 * b * hd * (2 * sq * hq + 2 * sk * hkv)
+
+
+def weight_shapes(cfg) -> dict:
+    """(K, N) of each projection weight of a GPT-Neo-style ``cfg``."""
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": (d, nq * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd),
+            "wo": (nq * hd, d), "ffn_in": (d, ff), "ffn_gate": (d, ff),
+            "ffn_out": (ff, d), "lm_head": (d, cfg.vocab)}
 
 
 def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
@@ -123,11 +176,8 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
     ("streamed_matmul", (M, K, N)) per projection and ("flash_attention",
     (B, S, S, Hq, Hkv, hd, True, 0)) per attention."""
     from repro_torch.core.graph import build_lm_graph
-    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    wshape = {"wq": (d, nq * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd),
-              "wo": (nq * hd, d), "ffn_in": (d, ff), "ffn_gate": (d, ff),
-              "ffn_out": (ff, d), "lm_head": (d, cfg.vocab)}
+    wshape = weight_shapes(cfg)
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     out = Counter()
     for op in build_lm_graph(cfg, seq=seq, batch=batch, dtype_bytes=4).ops:
         if op.kind == "matmul":
@@ -137,6 +187,23 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
             out[("flash_attention",
                  (batch, seq, seq, nq, nkv, hd, True, 0))] += 1
     return out
+
+
+def layer_weights(cfg) -> list:
+    """(name, (K, N)) of every projection weight of ``cfg``'s layer 0, in
+    the planning graph's order."""
+    from repro_torch.core.graph import build_lm_graph
+    wshape = weight_shapes(cfg)
+    return [(op.name, wshape[op.name.split(".")[-1]]) for op in
+            build_lm_graph(cfg, seq=1, batch=1, dtype_bytes=4).ops
+            if op.kind == "matmul" and op.layer == 0]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as integers of the same width, for bit-exact
+    comparison."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.dtype.itemsize])
 
 
 def by_kernel(shapes: Counter) -> Counter:
@@ -160,10 +227,18 @@ def main() -> int:
                                             StreamingExecutor,
                                             _build_programs, chunk_rows)
     from repro_torch.device import HostToDevice
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.layout_pack import layout_pack
+    from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan
     from repro_torch.kernels.streamed_matmul import streamed_matmul
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.ssm import ssd_chunked
     from torch.profiler import ProfilerActivity, profile
 
     t_start = time.perf_counter()
@@ -183,7 +258,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"[build] both kernels built in {time.perf_counter() - t0:.2f}s "
+    log(f"[build] {len(_build.SOURCES)} kernels built in "
+        f"{time.perf_counter() - t0:.2f}s "
         f"(one nvcc per source, in parallel) into {_build.BUILD_DIR}")
     for kname, info in _build.BUILD_LOG.items():
         for line in info["log"].splitlines():
@@ -281,6 +357,77 @@ def main() -> int:
             f"bound {bms:.4f} ms ({bby}), {flops / r['ms'] / 1e9:.1f} "
             f"TFLOP/s, max abs err {err:.2e}")
     del a, b, q, k, v, qt, kt, vt, got
+
+    # (c) ssd_scan against the sequential recurrence on the JAX kernel
+    # tests' sweep (tests/test_kernels.py:56-91) plus a length whose chunk
+    # halves, at that file's tolerance; layout_pack bit for bit on its
+    # sweep (tests/test_kernels.py:94-106) in f32 and bf16
+    def ssd_inputs(b_, s, h, p, n):
+        """SSD operands as the model hands them over: x, b and c slices of
+        one conv output, dt softplus'ed, a negative, d from a normal."""
+        xbc = rnd(b_, s, h * p + 2 * n)
+        return (xbc[..., :h * p].reshape(b_, s, h, p),
+                torch.nn.functional.softplus(rnd(b_, s, h)),
+                -torch.exp(rnd(h, scale=0.5)), xbc[..., h * p:h * p + n],
+                xbc[..., h * p + n:], rnd(h))
+
+    sweep_ssd = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
+                 (1, 256, 4, 8, 4, 16), (2, 96, 2, 16, 8, 32),
+                 (1, 96, 2, 16, 8, 64)]
+    for (b_, s, h, p, n, ch) in sweep_ssd:
+        ins = ssd_inputs(b_, s, h, p, n)
+        got = ssd_scan(*ins, chunk=ch)
+        torch.cuda.synchronize()
+        close(got, ref.ssd_ref(*ins), 2e-3, 1e-3,
+              f"ssd_scan {(b_, s, h, p, n, ch)}")
+    sweep_pack = [(64, 256), (70, 300), (128, 384), (8, 128)]
+    for (r, c) in sweep_pack:
+        for dt in (torch.float32, torch.bfloat16):
+            w = rnd(r, c, dtype=dt)
+            got = layout_pack(w)
+            torch.cuda.synchronize()
+            check(torch.equal(bits(got), bits(ref.layout_pack_ref(
+                w, ops.native_tile(dt)))), f"layout_pack {(r, c)} {dt}")
+    log(f"[kernels] sweep ok: {len(sweep_ssd)} ssd_scan cases (atol 2e-3, "
+        f"rtol 1e-3 against ssd_ref) and {len(sweep_pack) * 2} layout_pack "
+        f"cases (bit-exact), f32 and bf16")
+
+    # (d) ssd_scan at the Mamba-2-130M prefill shape, timed, against the
+    # sequential recurrence (its plain version) and against ssd_chunked
+    # (what the model path runs on the CPU): f32 summation order only, so
+    # within 1e-4 (chunked) and 1e-3 (4096 sequential steps) of y's scale
+    mcfg = get_arch(MAMBA).model
+    sc = mcfg.ssm
+    heads = sc.expand * mcfg.d_model // sc.head_dim
+    ssd_key = (MAMBA_BATCH, MAMBA_SEQ, heads, sc.head_dim, sc.d_state,
+               chunk_len(MAMBA_SEQ, sc.chunk))
+    ins = ssd_inputs(*ssd_key[:5])
+    got = ssd_scan(*ins, chunk=sc.chunk)
+    torch.cuda.synchronize()
+    chunked = ssd_chunked(*ins, sc.chunk)[0]
+    seq_ref = ref.ssd_ref(*ins)
+    scale = chunked.abs().max().item()
+    err_chunked = close(got, chunked, 1e-4 * scale, 0.0,
+                        f"ssd_scan {ssd_key} vs ssd_chunked")
+    err = close(got, seq_ref, 1e-3 * scale, 0.0,
+                f"ssd_scan {ssd_key} vs ssd_ref")
+    del chunked, seq_ref
+    flops, nbytes = shape_work("ssd_scan", ssd_key)
+    bms, bby = bound_ms(flops, nbytes, peaks)
+    measured[("ssd_scan", ssd_key)] = {
+        "ms": median_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
+        "plain_ms": median_ms(lambda: ref.ssd_ref(*ins), n=5),
+        "chunked_ms": median_ms(lambda: ssd_chunked(*ins, sc.chunk)),
+        "library_ms": None, "bound_ms": bms, "bound_by": bby,
+        "max_abs_err": err, "max_abs_err_chunked": err_chunked}
+    r = measured[("ssd_scan", ssd_key)]
+    log(f"[kernels] ('ssd_scan', {ssd_key}): kernel {r['ms']:.4f} ms, plain "
+        f"(ssd_ref, median of 5) {r['plain_ms']:.4f} ms, ssd_chunked "
+        f"{r['chunked_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s; max abs err {err:.2e} vs "
+        f"ssd_ref, {err_chunked:.2e} vs ssd_chunked (|y| up to {scale:.1f})")
+    del ins, got, w
 
     # ---- 4. executors: GPT-Neo-S streamed vs preloaded --------------------
     cfg_s = get_arch("gptneo-s").model
@@ -439,30 +586,224 @@ def main() -> int:
         f"launches {on_launches}")
     del on_resp, on_engine
 
-    # ---- 7. summary -------------------------------------------------------
+    # ---- 7. Mamba-2-130M through the model path ---------------------------
+    arch = get_arch(MAMBA)
+    env = make_host_mesh(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pre = model.make_step_bundle(
+        arch, ShapeConfig("prefill", MAMBA_SEQ, MAMBA_BATCH, "prefill"), env)
+    mgen = torch.Generator(device=dev).manual_seed(2)
+    params = shd.init_params(pre.arg_specs[0], mgen, dev)
+    log(f"[mamba] {MAMBA}: {mcfg.num_layers} layers, d_model "
+        f"{mcfg.d_model}, {heads} SSD heads of {sc.head_dim}, d_state "
+        f"{sc.d_state}, chunk {sc.chunk}, vocab {mcfg.vocab}; "
+        f"{shd.param_count(pre.arg_specs[0]) / 1e6:.1f}M parameters "
+        f"({shd.param_bytes(pre.arg_specs[0]) / 1e6:.1f} MB) from "
+        f"init_params on {dev}")
+    requests = [torch.randint(0, mcfg.vocab, (MAMBA_BATCH, MAMBA_SEQ),
+                              generator=mgen, device=dev, dtype=torch.int32)
+                for _ in range(MAMBA_REQUESTS)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits, walls = [], []
+    for toks in requests:
+        t0 = time.perf_counter()
+        out = pre.fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logits.append(out)
+    mamba_shapes = Counter({(kn, key): c for kn, by_shape in
+                            ops.launch_counts_by_shape().items()
+                            for key, c in by_shape.items()})
+    expected = Counter({("ssd_scan", ssd_key):
+                        mcfg.num_layers * MAMBA_REQUESTS})
+    check(mamba_shapes == expected,
+          f"prefill launches {dict(mamba_shapes)}, expected {dict(expected)}")
+    for out in logits:
+        check(tuple(out.shape) == (MAMBA_BATCH, 1, mcfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              f"prefill logits {tuple(out.shape)} not finite")
+    log(f"[mamba] prefill {MAMBA_REQUESTS} requests of {MAMBA_BATCH} x "
+        f"{MAMBA_SEQ} tokens: wall {', '.join(f'{w:.4f}' for w in walls)} s "
+        f"({MAMBA_BATCH * MAMBA_SEQ / min(walls):.0f} tokens/s at best); "
+        f"logits {tuple(logits[0].shape)} finite; launches "
+        f"{ {f'{kn}{key}': c for (kn, key), c in mamba_shapes.items()} } "
+        f"({mcfg.num_layers} per request)")
+
+    def logits_close(got, want, what):
+        """Max abs and relative L2 error of two runs' logits, checked
+        against LOGIT_ATOL and LOGIT_REL_L2."""
+        err = close(got, want, LOGIT_ATOL, 0.0, what)
+        rel = ((got - want).norm() / want.norm()).item()
+        check(rel <= LOGIT_REL_L2, f"{what}: relative L2 error {rel:.3e} "
+              f"beyond {LOGIT_REL_L2}")
+        return err, rel
+
+    def plain_ssd(x, dt, a, b_, c, d, *, chunk):
+        return ssm_mod.ssd_chunked(x, dt, a, b_, c, d, chunk)[0]
+
+    with mock.patch.object(ops, "ssd", plain_ssd):
+        t0 = time.perf_counter()
+        want = pre.fn(params, {"tokens": requests[0]})
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    prefill_err, prefill_rel = logits_close(
+        logits[0], want, "prefill through ssd_scan vs through ssd_chunked")
+    log(f"[mamba] request 0 through ssd_chunked instead of the kernel: wall "
+        f"{plain_wall:.4f} s, logits within atol {LOGIT_ATOL} (max abs "
+        f"err {prefill_err:.2e}, relative L2 {prefill_rel:.2e}, |logits| up "
+        f"to {want.abs().max().item():.3f}), same argmax in "
+        f"{int((logits[0].argmax(-1) == want.argmax(-1)).sum())}/"
+        f"{MAMBA_BATCH} rows")
+    del logits, want, out
+
+    dec = model.make_step_bundle(
+        arch, ShapeConfig("decode", MAMBA_SEQ, MAMBA_BATCH, "decode"), env)
+    cache = shd.init_params(dec.arg_specs[1], mgen, dev)        # zeros
+    tok = requests[0][:, :1]
+    ops.reset_launch_counts()
+    steps = []
+    for t in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        out, cache = dec.fn(params, cache, tok, torch.full(
+            (MAMBA_BATCH,), t, dtype=torch.int32, device=dev))
+        tok = out.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    check(tuple(out.shape) == (MAMBA_BATCH, 1, mcfg.vocab)
+          and bool(torch.isfinite(out).all()), "decode logits not finite")
+    log(f"[mamba] greedy decode {DECODE_STEPS} steps at batch {MAMBA_BATCH} "
+        f"from the zero cache: median step {np.median(steps) * 1e3:.3f} ms, "
+        f"total {sum(steps):.4f} s, first step {steps[0] * 1e3:.3f} ms; "
+        f"no kernel launch")
+
+    # decode against prefill: the recurrence step by step from the zero
+    # cache ends at the chunked scan's last logits
+    cpre = model.make_step_bundle(arch, ShapeConfig(
+        "prefill", CONSIST_SEQ, CONSIST_BATCH, "prefill"), env)
+    cdec = model.make_step_bundle(arch, ShapeConfig(
+        "decode", CONSIST_SEQ, CONSIST_BATCH, "decode"), env)
+    prompt = torch.randint(0, mcfg.vocab, (CONSIST_BATCH, CONSIST_SEQ),
+                           generator=mgen, device=dev, dtype=torch.int32)
+    ops.reset_launch_counts()
+    want = cpre.fn(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["ssd_scan"] == mcfg.num_layers,
+          f"consistency prefill launches {ops.launch_counts()}")
+    cache = shd.init_params(cdec.arg_specs[1], mgen, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(CONSIST_SEQ):
+        got, cache = cdec.fn(params, cache, prompt[:, t:t + 1], torch.full(
+            (CONSIST_BATCH,), t, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    consist_s = time.perf_counter() - t0
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    consist_err, consist_rel = logits_close(
+        got, want, "decode from the zero cache vs prefill")
+    pick = got.argmax(-1, keepdim=True)
+    gap = (want.amax(-1, keepdim=True) - want.gather(-1, pick)).max().item()
+    check(gap <= LOGIT_ATOL, f"decode picks {pick.flatten().tolist()}, "
+          f"{gap:.3e} below the prefill's best logit")
+    top2 = want.topk(2, dim=-1).values[..., 0, :]
+    log(f"[mamba] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
+        f"the zero cache ({consist_s:.3f} s) vs prefill of the same prompt: "
+        f"max abs err {consist_err:.2e} (atol {LOGIT_ATOL}), relative L2 "
+        f"{consist_rel:.2e}, |logits| up to {want.abs().max().item():.3f}; "
+        f"decode picks {pick.flatten().tolist()}, prefill "
+        f"{want.argmax(-1).flatten().tolist()} (same: "
+        f"{torch.equal(pick, want.argmax(-1, keepdim=True))}), prefill "
+        f"top-2 gaps "
+        f"{[round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    mamba_mem = torch.cuda.max_memory_allocated()
+    log(f"[mamba] max_memory_allocated {mamba_mem / 1e6:.1f} MB")
+    del params, cache, requests, prompt, want, got, out, pre, dec
+
+    # ---- 8. ops.pack over one GPT-Neo-1.3B layer's weights ----------------
+    big_cfg = get_arch(SERVE_MODELS[0]).model
+    layer_w = layer_weights(big_cfg)
+    wgen = torch.Generator(device=dev).manual_seed(3)
+    packed = {}
+    ops.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        for wname, (k, n) in layer_w:
+            w = torch.randn((k, n), generator=wgen, device=dev).to(dt)
+            packed[(wname, dt)] = (w, ops.pack(w))
+    torch.cuda.synchronize()
+    pack_shapes = Counter({("layout_pack", key): c for key, c in
+                           ops.launch_counts_by_shape()["layout_pack"]
+                           .items()})
+    check(sum(ops.launch_counts().values()) == len(packed) == sum(
+        pack_shapes.values()), f"pack launches {ops.launch_counts()}")
+    for (wname, dt), (w, t) in packed.items():
+        check(torch.equal(bits(t), bits(ref.layout_pack_ref(
+            w, ops.native_tile(dt)))), f"pack {wname} {dt} not bit-exact")
+        check(torch.equal(bits(ops.unpack(t, tuple(w.shape))), bits(w)),
+              f"unpack {wname} {dt}")
+    del packed, w, t
+    for shape in sorted(pack_shapes, key=str):
+        r, c, tr, tc, dt = shape[1]
+        w = torch.randn((r, c), generator=wgen, device=dev).to(dt)
+        got = layout_pack(w)
+        want = ref.layout_pack_ref(w, (tr, tc))
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)), f"pack {shape}")
+        flops, nbytes = shape_work("layout_pack", shape[1])
+        bms, bby = bound_ms(flops, nbytes, peaks)
+        measured[shape] = {
+            "ms": median_ms(lambda: layout_pack(w)),
+            "plain_ms": median_ms(lambda: ref.layout_pack_ref(w, (tr, tc))),
+            "library_ms": None, "bound_ms": bms, "bound_by": bby,
+            "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        m_ = measured[shape]
+        log(f"[pack] {shape}: kernel {m_['ms']:.4f} ms, plain "
+            f"{m_['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
+            f"{nbytes / 1e6:.1f} MB), {nbytes / m_['ms'] / 1e6:.0f} GB/s, "
+            f"bit-exact")
+        del w, got, want
+    log(f"[pack] ops.pack over {len(layer_w)} weights of a {SERVE_MODELS[0]} "
+        f"layer in f32 and bf16: {sum(pack_shapes.values())} launches, each "
+        f"bit-exact against layout_pack_ref and unpacked back exactly")
+
+    # ---- 9. summary -------------------------------------------------------
+    # each kernel's launches by shape on its path: serving (phase 5), the
+    # Mamba-2 prefill requests (phase 7), the pack pass (phase 8)
+    path_counts = serve_shapes + mamba_shapes + pack_shapes
     kernels = []
-    for kn in ("streamed_matmul", "flash_attention"):
-        # each shape's numbers weighted by its launches counted in phase 5
-        weights = Counter({s: c for s, c in serve_shapes.items()
+    for kn in SOURCES:
+        # each shape's numbers weighted by its launches counted on the path
+        weights = Counter({s: c for s, c in path_counts.items()
                            if s[0] == kn})
         total = sum(weights.values())
+        check(total > 0, f"{kn} was not launched on its path")
         mean = {f: sum(measured[s][f] * c for s, c in weights.items()) / total
-                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for f in ("ms", "plain_ms", "bound_ms")}
+        lib = [measured[s]["library_ms"] for s in weights]
         by = Counter()
         for s, c in weights.items():
             by[measured[s]["bound_by"]] += c
         kernels.append({
             "name": kn, "route": "cuda", "source": SOURCES[kn],
-            "replaces": REPLACES[kn], "launches": launches[kn],
+            "replaces": REPLACES[kn], "launches": total,
             "max_abs_err": max(measured[s]["max_abs_err"] for s in weights),
             "ms": mean["ms"], "plain_ms": mean["plain_ms"],
             "bound_ms": mean["bound_ms"], "bound_by": by.most_common(1)[0][0],
-            "library_ms": mean["library_ms"],
-            "per_shape": [{"shape": list(s[1]), "launches": c,
-                           **measured[s]} for s, c in sorted(weights.items())]})
-    log(f"kernels: streamed_matmul=ok ({launches['streamed_matmul']} "
-        f"launches) flash_attention=ok ({launches['flash_attention']} "
-        f"launches); serving max abs err vs plain {serve_err:.2e}; "
+            "library_ms": None if None in lib else sum(
+                measured[s]["library_ms"] * c for s, c in weights.items())
+            / total,
+            "per_shape": [{"shape": [str(v) if isinstance(v, torch.dtype)
+                                     else v for v in s[1]],
+                           "launches": c, **measured[s]}
+                          for s, c in sorted(weights.items(), key=str)]})
+    log("kernels: " + " ".join(f"{k['name']}=ok ({k['launches']} launches)"
+                               for k in kernels)
+        + f"; serving max abs err vs plain {serve_err:.2e}; Mamba-2 prefill "
+        f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -24,7 +24,9 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = {"streamed_matmul": "streamed_matmul.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu",
+           "layout_pack": "layout_pack.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -13,10 +13,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import layout_pack as _pack
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import streamed_matmul as _mm
+from repro_torch.kernels.layout_pack import native_tile
 
-KERNELS = {"streamed_matmul": _mm, "flash_attention": _fa}
+KERNELS = {"streamed_matmul": _mm, "flash_attention": _fa,
+           "ssd_scan": _ssd, "layout_pack": _pack}
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,6 +38,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, d_skip: torch.Tensor, *,
+        chunk: int = 256) -> torch.Tensor:
+    """Mamba-2 SSD scan. x [B,S,H,P], dt [B,S,H], a/d_skip [H], b/c
+    [B,S,N] -> y [B,S,H,P] f32. The plain version is the sequential
+    recurrence, which needs no chunk."""
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, a, b, c, d_skip)
+    return _ssd.ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
+
+
+def pack(w: torch.Tensor, *, tile=None) -> torch.Tensor:
+    """[R, C] -> [R/tr, C/tc, tr, tc], zero-padded; ``native_tile`` of
+    w's dtype by default."""
+    if w.device.type == "cpu":
+        return ref.layout_pack_ref(w, tile or native_tile(w.dtype))
+    return _pack.layout_pack(w, tile)
+
+
+unpack = ref.layout_unpack_ref
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: sum(mod.launches.values()) for name, mod in KERNELS.items()}
 
@@ -41,7 +67,8 @@ def launch_counts() -> Dict[str, int]:
 def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
-    window) for ``flash_attention``."""
+    window) for ``flash_attention``, (B, S, H, P, N, Q) for ``ssd_scan``
+    and (R, C, tr, tc, dtype) for ``layout_pack``."""
     return {name: Counter(mod.launches) for name, mod in KERNELS.items()}
 
 
@@ -50,5 +77,6 @@ def reset_launch_counts() -> None:
         mod.launches.clear()
 
 
-__all__ = ["matmul", "attention", "launch_counts", "launch_counts_by_shape",
-           "reset_launch_counts", "KERNELS", "ref"]
+__all__ = ["matmul", "attention", "ssd", "pack", "unpack", "native_tile",
+           "launch_counts", "launch_counts_by_shape", "reset_launch_counts",
+           "KERNELS", "ref"]

@@ -1,5 +1,5 @@
 """The port on the card: its CUDA kernels against their plain versions, the
-copy-stream path, and the executors. Every test needs an NVIDIA card
+copy-stream path, the executors and the Mamba-2 model path. Every test needs an NVIDIA card
 (``cuda`` marker) and skips without one; the file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
@@ -90,10 +90,12 @@ def test_dispatch_launches_and_counts(dev):
     ops.attention(q, q, q)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"streamed_matmul": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1, "ssd_scan": 0,
+                                   "layout_pack": 0}
     assert ops.launch_counts_by_shape() == {
         "streamed_matmul": {(64, 128, 64): 1},
-        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0): 1}}
+        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0): 1},
+        "ssd_scan": {}, "layout_pack": {}}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -152,3 +154,134 @@ def test_executors_on_the_card(dev):
                                  quantize_stream=quantize).run(tokens)
         torch.testing.assert_close(st.result.cpu(), want.result, atol=1e-4,
                                    rtol=1e-4)
+
+
+# (b, s, h, p, n, chunk): tests/test_kernels.py's sweep, a length whose
+# chunk halves (96 % 64 -> 32), a ragged chunk (100 -> 50) and the
+# Mamba-2-130M head shape at a short length
+SSD_SHAPES = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
+              (1, 256, 4, 8, 4, 16), (2, 96, 2, 16, 8, 32),
+              (1, 96, 2, 16, 8, 64), (1, 100, 2, 64, 16, 256),
+              (2, 512, 3, 64, 128, 256)]
+PACK_CASES = [(64, 256), (70, 300), (128, 384), (8, 128), (33, 129),
+              (2048, 8192)]
+
+
+def _ssd_inputs(rng, b, s, h, p, n, dev):
+    x = _normal(rng, (b, s, h, p)).to(dev)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, s, h))).to(dev)
+    a = -torch.exp(_normal(rng, (h,), 0.5)).to(dev)
+    bb, cc = _normal(rng, (b, s, n)).to(dev), _normal(rng, (b, s, n)).to(dev)
+    return x, dt, a, bb, cc, _normal(rng, (h,)).to(dev)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_kernel(dev, b, s, h, p, n, chunk):
+    """Against the sequential recurrence, at the tolerance of
+    tests/test_kernels.py (chunked and sequential sums differ in order)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ins = _ssd_inputs(np.random.default_rng(s + n), b, s, h, p, n, dev)
+    got = ssd_scan(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.ssd_ref(*ins), atol=2e-3, rtol=1e-3)
+
+
+def test_ssd_scan_reads_strided_views(dev):
+    """x, b and c as the model hands them over: slices of one conv output,
+    and dt a transposed view; the result is the contiguous inputs'."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rng = np.random.default_rng(9)
+    b, s, h, p, n = 2, 256, 4, 16, 8
+    xbc = _normal(rng, (b, s, h * p + 2 * n)).to(dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(_normal(rng, (b, h, s))).to(dev) \
+        .transpose(1, 2)
+    a, d = -torch.ones(h, device=dev), torch.ones(h, device=dev)
+    got = ssd_scan(x, dt, a, bb, cc, d, chunk=64)
+    want = ssd_scan(x.contiguous(), dt.contiguous(), a, bb.contiguous(),
+                    cc.contiguous(), d, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ssd_scan_rows_do_not_depend_on_the_batch(dev):
+    """A batch row's output is the same alone or inside a larger batch:
+    one block per (batch, head), nothing shared across batch rows."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ins = _ssd_inputs(np.random.default_rng(4), 3, 256, 4, 64, 128, dev)
+    full = ssd_scan(*ins, chunk=128)
+    one = ssd_scan(*(t[1:2].clone() if t.dim() > 1 else t for t in ins),
+                   chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(full[1:2], one)
+
+
+@pytest.mark.parametrize("r,c", PACK_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_layout_pack_kernel_bit_exact(dev, r, c, dtype):
+    from repro_torch.kernels.layout_pack import layout_pack
+    w = _normal(np.random.default_rng(r + c), (r, c)).to(dev, DTYPES[dtype])
+    got = layout_pack(w)
+    want = ref.layout_pack_ref(w, ops.native_tile(w.dtype))
+    odd = layout_pack(w, (5, 24))
+    torch.cuda.synchronize()
+    bits = torch.int16 if w.dtype.itemsize == 2 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(odd.view(bits),
+                       ref.layout_pack_ref(w, (5, 24)).view(bits))
+    assert torch.equal(ops.unpack(got, (r, c)), w)
+
+
+def test_new_kernels_dispatch_and_count(dev):
+    rng = np.random.default_rng(1)
+    ops.reset_launch_counts()
+    ins = _ssd_inputs(rng, 1, 96, 2, 16, 8, dev)
+    ops.ssd(*ins, chunk=64)
+    ops.pack(_normal(rng, (10, 20)).to(dev, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["ssd_scan"] == {
+        (1, 96, 2, 16, 8, 32): 1}
+    assert ops.launch_counts_by_shape()["layout_pack"] == {
+        (10, 20, 16, 128, torch.bfloat16): 1}
+
+
+def test_mamba_prefill_and_decode_on_the_card(dev):
+    """The model path on the card (ssd_scan in every layer's prefill, the
+    recurrence in decode) against the same bundle on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    arch = ArchConfig(model=get_arch("mamba2-130m").model.reduced())
+    cfg = arch.model
+    seq, batch = 96, 2
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    params, cache, _, _ = model.init_inputs(model.make_step_bundle(
+        arch, ShapeConfig("d", seq, batch, "decode"),
+        make_host_mesh(device="cpu")), gen, "cpu")
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    for where in ("cpu", dev):
+        env = make_host_mesh(device=where)
+        pre = model.make_step_bundle(arch, ShapeConfig("p", seq, batch,
+                                                       "prefill"), env)
+        dec = model.make_step_bundle(arch, ShapeConfig("d", seq, batch,
+                                                       "decode"), env)
+        p = tree_map(lambda t: t.to(where), params)
+        c = tree_map(lambda t: t.to(where), cache)
+        ops.reset_launch_counts()
+        logits = pre.fn(p, {"tokens": toks.to(where)})
+        counted = ops.launch_counts()["ssd_scan"]
+        for t in range(4):
+            step, c = dec.fn(p, c, toks[:, t:t + 1].to(where),
+                             torch.full((batch,), t, dtype=torch.int32,
+                                        device=where))
+        assert ops.launch_counts()["ssd_scan"] == counted
+        out[str(where)] = (logits.cpu(), step.cpu(), counted)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert cpu[2] == 0 and card[2] == cfg.num_layers
+    for i in (0, 1):
+        torch.testing.assert_close(card[i], cpu[i], atol=4e-2, rtol=0)

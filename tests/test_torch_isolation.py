@@ -89,10 +89,17 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     torch.testing.assert_close(ops.attention(q, q, q),
                                ref.flash_attention_ref(q, q, q),
                                atol=0, rtol=0)
-    assert ops.launch_counts() == {"streamed_matmul": 0,
-                                   "flash_attention": 0}
-    assert ops.launch_counts_by_shape() == {"streamed_matmul": {},
-                                            "flash_attention": {}}
+    x = torch.from_numpy(rng.standard_normal((1, 8, 2, 4)).astype(np.float32))
+    dt = torch.from_numpy(rng.random((1, 8, 2)).astype(np.float32))
+    bc = torch.from_numpy(rng.standard_normal((1, 8, 3)).astype(np.float32))
+    a, d = -torch.ones(2), torch.ones(2)
+    torch.testing.assert_close(ops.ssd(x, dt, a, bc, bc, d, chunk=4),
+                               ref.ssd_ref(x, dt, a, bc, bc, d),
+                               atol=0, rtol=0)
+    assert torch.equal(ops.pack(a[None]), ref.layout_pack_ref(a[None]))
+    names = ("streamed_matmul", "flash_attention", "ssd_scan", "layout_pack")
+    assert ops.launch_counts() == {n: 0 for n in names}
+    assert ops.launch_counts_by_shape() == {n: {} for n in names}
 
 
 def test_kernel_wrappers_raise_on_cpu_tensors():
@@ -104,6 +111,13 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     q = torch.zeros((1, 4, 1, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
+    from repro_torch.kernels.layout_pack import layout_pack
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    h = torch.zeros(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(q, q[..., 0], h, q[:, :, 0], q[:, :, 0], h)
+    with pytest.raises(ValueError, match="CUDA"):
+        layout_pack(a)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
