@@ -22,6 +22,18 @@ Any failed check raises and the script exits non-zero without its last
 line. It imports nothing of JAX or of the JAX package, needs one card, and
 exits non-zero without one.
 
+A kernel's ``ms`` (and its plain version's and the library call's) is one
+call between two CUDA events on an idle stream, the wrapper's host
+dispatch included, the median of 20 calls. ``device_ms`` (and the library
+call's ``library_device_ms``) is device time per call: CUDA events around
+20 back-to-back calls, so the host's dispatch of a call overlaps the
+device's work on the one before, the median of 5 rounds.
+
+Phase 5c serves the same requests once more with the planner's f32 rate
+pinned to what the previous version of the matmul kernel calibrated to,
+and both serving runs log the weight pool's evictions in order, so a
+change of the plan can be told from a change of the kernels.
+
 The last lines are the kernels' launch counts, the card's name and power
 limit as ``nvidia-smi`` reports them, one JSON object with each kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -30,10 +42,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 from unittest import mock
 from dataclasses import replace
 from pathlib import Path
@@ -53,7 +68,12 @@ SERVE_MODELS = ("gptneo-1.3b", "gptneo-s")
 SEQ = 1024
 REQUESTS = 4
 BUDGET_MB = 2048
-TIMED = 20          # timed launches per median, after 3 untimed ones
+TIMED = 20          # timed calls (per round), after 3 untimed ones
+ROUNDS = 5          # rounds of back-to-back calls per device-time median
+# the f32 rate HWSpec.cuda_calibrated measured with the previous,
+# register-staged version of the matmul kernel: 0.3459 ms a call at
+# CALIBRATION_SHAPE (1024 x 2048 x 2048) on an H100 80GB HBM3 at 700 W
+PREVIOUS_PEAK_FLOPS = 2 * 1024 * 2048 * 2048 / 0.3459e-3
 MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_SEQ, MAMBA_REQUESTS = 4, 4096, 3
 DECODE_STEPS = 32
@@ -86,8 +106,32 @@ def check(cond: bool, what: str):
         raise AssertionError(what)
 
 
-def median_ms(fn, n: int = TIMED) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after 3 untimed calls."""
+def device_ms(fn, n: int = TIMED, rounds: int = ROUNDS) -> float:
+    """Device time of one call of ``fn`` in ms, after 3 untimed calls: the
+    median over ``rounds`` of CUDA events around ``n`` back-to-back calls,
+    divided by ``n``. The host's dispatch of a call overlaps the device's
+    work on the one before, so this is the kernels' time, not the
+    wrapper's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def call_ms(fn, n: int = TIMED) -> float:
+    """Median time of ``n`` single calls of ``fn`` in ms, each between two
+    CUDA events on an idle stream, after 3 untimed calls: the wrapper's
+    host dispatch included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -101,6 +145,26 @@ def median_ms(fn, n: int = TIMED) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel entry (mangled name): (registers, spill store bytes, spill
+    load bytes)} from ``nvcc -Xptxas -v`` output."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
 
 
 def nvidia_smi() -> str:
@@ -206,6 +270,50 @@ def bits(t: torch.Tensor) -> torch.Tensor:
                    8: torch.int64}[t.dtype.itemsize])
 
 
+@contextmanager
+def eviction_log():
+    """Records the weight pool's evictions in order while it is open, as
+    (request, thread, model of the evicted entry): ``request`` counts the
+    serving engine's finished requests, so an eviction made while request
+    i runs, or by the prefetch of the request after it, carries i; the
+    thread is "run" for the engine's own and "prefetch" for the others."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.weight_cache import WeightCache
+    events, done = [], [0]
+    select, release = WeightCache._select_victims, \
+        ServingEngine._release_protection
+
+    def logged_select(cache, need):
+        victims = select(cache, need)
+        by = "run" if threading.current_thread() is threading.main_thread() \
+            else "prefetch"
+        events.extend((done[0], by, WeightCache._model_of(k))
+                      for k in victims or ())
+        return victims
+
+    def counted_release(engine, name):
+        release(engine, name)
+        done[0] += 1
+
+    with mock.patch.object(WeightCache, "_select_victims", logged_select), \
+            mock.patch.object(ServingEngine, "_release_protection",
+                              counted_release):
+        yield events
+
+
+def eviction_order(events) -> str:
+    """The evictions of ``eviction_log`` in order, one run of entries of
+    one model evicted by one thread during one request per item."""
+    runs = []
+    for req, by, model in events:
+        if runs and runs[-1][:3] == [req, by, model]:
+            runs[-1][3] += 1
+        else:
+            runs.append([req, by, model, 1])
+    return ", ".join(f"req {r} {by} evicted {m} x {c}"
+                     for r, by, m, c in runs) or "none"
+
+
 def by_kernel(shapes: Counter) -> Counter:
     """Launch totals per kernel of a (kernel, shape key) counter."""
     out = Counter()
@@ -221,7 +329,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_arch
     from repro_torch.core.capacity import (CALIBRATION_LAUNCHES,
-                                           CALIBRATION_SHAPE)
+                                           CALIBRATION_SHAPE, HWSpec)
     from repro_torch.core.plan import plan_always_next
     from repro_torch.core.streaming import (HostModel, PreloadExecutor,
                                             StreamingExecutor,
@@ -233,7 +341,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.layout_pack import layout_pack
     from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan
-    from repro_torch.kernels.streamed_matmul import streamed_matmul
+    from repro_torch.kernels.streamed_matmul import streamed_matmul, tile_for
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model
@@ -284,9 +392,12 @@ def main() -> int:
         return err
 
     # (a) the JAX kernel tests' sweeps (tests/test_kernels.py:13-55), plus
-    # ragged shapes; B is scaled like HostModel's weights (1/sqrt(K))
+    # ragged shapes (K split into ranges that are not whole K tiles, rows
+    # not 16-byte aligned, ragged key tiles at every head dim); B is scaled
+    # like HostModel's weights (1/sqrt(K))
     sweep_mm = [(8, 128, 128), (64, 256, 128), (128, 128, 384),
-                (256, 512, 256), (40, 128, 256), (37, 100, 61)]
+                (256, 512, 256), (40, 128, 256), (37, 100, 61),
+                (33, 130, 770), (64, 3100, 768), (33, 3074, 770)]
     for (m, k, n) in sweep_mm:
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             a, b = rnd(m, k, dtype=dt), rnd(k, n, scale=k ** -0.5, dtype=dt)
@@ -296,7 +407,8 @@ def main() -> int:
                   f"streamed_matmul {(m, k, n)} {dt}")
     sweep_fa = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
                 (2, 64, 64, 2, 1, 16), (1, 128, 128, 8, 8, 128),
-                (1, 128, 128, 4, 2, 64), (1, 100, 100, 4, 2, 64)]
+                (1, 128, 128, 4, 2, 64), (1, 100, 100, 4, 2, 64),
+                (1, 100, 100, 4, 2, 128)]
     for (b_, sq, sk, hq, hkv, hd) in sweep_fa:
         for causal, window in ((True, 0), (True, 64), (False, 0)):
             for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
@@ -309,10 +421,37 @@ def main() -> int:
                     q, k, v, causal=causal, window=window), tol, 0.0,
                     f"flash_attention {(b_, sq, sk, hq, hkv, hd)} "
                     f"causal={causal} window={window} {dt}")
+    # a row of C alone equals the same row inside 300 (one K order, the
+    # plan from N and K only), with and without a split of K
+    for (k, n) in ((768, 3072), (3072, 768), (2048, 2048)):
+        a, b = rnd(300, k), rnd(k, n, scale=k ** -0.5)
+        full, part = streamed_matmul(a, b), streamed_matmul(a[17:18].clone(), b)
+        torch.cuda.synchronize()
+        check(torch.equal(full[17:18], part), f"streamed_matmul row 17 of "
+              f"300 differs from the row alone at K={k} N={n}")
     log(f"[kernels] sweep ok: {len(sweep_mm) * 2} matmul and "
-        f"{len(sweep_fa) * 6} attention cases, f32 and bf16")
+        f"{len(sweep_fa) * 6} attention cases, f32 and bf16; matmul rows "
+        f"bit-equal alone and in a batch of 300 at (K, N) = (768, 3072), "
+        f"(3072, 768), (2048, 2048)")
 
-    # (b) every shape the serving path launches, f32, timed
+    # (b) every shape the serving path launches, f32, timed: one call with
+    # its host dispatch, and device time by back-to-back calls; the share
+    # of the bound and the ratio to the library call in each, the library's
+    # kernels, and the registers and spills of the kernel that ran
+    usage = {kn: ptxas_usage(info["log"]) for kn, info in
+             _build.BUILD_LOG.items()}
+
+    def entry_usage(kn, pattern):
+        """(registers, spill store bytes, spill load bytes) of the kernel
+        entry matching ``pattern``; Nones when ``kn`` was built before this
+        run (no compiler log)."""
+        if kn not in usage:
+            return None, None, None
+        found = [u for f, u in usage[kn].items() if pattern in f]
+        check(len(found) == 1, f"{kn}: {len(found)} ptxas entries match "
+              f"{pattern!r}")
+        return found[0]
+
     per_request = {m: path_shapes(get_arch(m).model, SEQ)
                    for m in SERVE_MODELS}
     log(f"[kernels] launches per request from the graphs: "
@@ -329,6 +468,9 @@ def main() -> int:
             plain = lambda: ref.matmul_ref(a, b)
             library = lambda: torch.matmul(a, b)
             atol = rtol = 1e-4
+            # the f32 kernel on 16-byte aligned rows
+            regs = entry_usage(kn, "matmul_kernelIfLi0E")
+            plan = f"splits {tile_for(n, k)}, "
         else:
             b_, sq, sk, hq, hkv, hd, causal, window = key
             check(hq == hkv and window == 0,
@@ -342,20 +484,40 @@ def main() -> int:
                                                     window=window)
             library = lambda: sdpa(qt, kt, vt, is_causal=causal)
             atol, rtol = 2e-5, 0.0
+            regs = entry_usage(kn, f"flash_kernelIfLi{hd}E")
+            plan = ""
         got = kern()
         torch.cuda.synchronize()
         err = close(got, plain(), atol, rtol, f"slice shape {shape}")
         flops, nbytes = shape_work(kn, key)
         bms, bby = bound_ms(flops, nbytes, peaks)
-        measured[shape] = {"ms": median_ms(kern), "plain_ms": median_ms(plain),
-                           "library_ms": median_ms(library),
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            library()
+            torch.cuda.synchronize()
+        lib_kernels = sorted({ev.key for ev in prof.key_averages() if
+                              getattr(ev, "self_device_time_total", 0) > 0})
+        measured[shape] = {"ms": call_ms(kern), "plain_ms": call_ms(plain),
+                           "library_ms": call_ms(library),
+                           "device_ms": device_ms(kern),
+                           "library_device_ms": device_ms(library),
+                           "library_kernels": lib_kernels,
                            "bound_ms": bms, "bound_by": bby,
-                           "max_abs_err": err}
+                           "max_abs_err": err, "registers": regs[0],
+                           "spill_bytes": None if regs[0] is None
+                           else regs[1] + regs[2]}
         r = measured[shape]
-        log(f"[kernels] {shape}: kernel {r['ms']:.4f} ms, plain "
+        log(f"[kernels] {shape}: one call: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {bms:.4f} ms ({bby}), {flops / r['ms'] / 1e9:.1f} "
-            f"TFLOP/s, max abs err {err:.2e}")
+            f"{bms / r['ms']:.1%} of the bound, "
+            f"{r['ms'] / r['library_ms']:.3f}x the library; device time: "
+            f"kernel {r['device_ms']:.4f} ms, library "
+            f"{r['library_device_ms']:.4f} ms, "
+            f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+            f"{bms / r['device_ms']:.1%} of the bound, "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}x the library; "
+            f"bound {bms:.4f} ms ({bby}), max abs err {err:.2e}; {plan}"
+            f"{regs[0]} registers, {regs[1]} B spill stores, {regs[2]} B "
+            f"spill loads; the library ran {lib_kernels}")
     del a, b, q, k, v, qt, kt, vt, got
 
     # (c) ssd_scan against the sequential recurrence on the JAX kernel
@@ -415,17 +577,19 @@ def main() -> int:
     flops, nbytes = shape_work("ssd_scan", ssd_key)
     bms, bby = bound_ms(flops, nbytes, peaks)
     measured[("ssd_scan", ssd_key)] = {
-        "ms": median_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
-        "plain_ms": median_ms(lambda: ref.ssd_ref(*ins), n=5),
-        "chunked_ms": median_ms(lambda: ssd_chunked(*ins, sc.chunk)),
+        "ms": call_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
+        "device_ms": device_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
+        "plain_ms": call_ms(lambda: ref.ssd_ref(*ins), n=5),
+        "chunked_ms": call_ms(lambda: ssd_chunked(*ins, sc.chunk)),
         "library_ms": None, "bound_ms": bms, "bound_by": bby,
         "max_abs_err": err, "max_abs_err_chunked": err_chunked}
     r = measured[("ssd_scan", ssd_key)]
-    log(f"[kernels] ('ssd_scan', {ssd_key}): kernel {r['ms']:.4f} ms, plain "
+    log(f"[kernels] ('ssd_scan', {ssd_key}): one call: kernel "
+        f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), plain "
         f"(ssd_ref, median of 5) {r['plain_ms']:.4f} ms, ssd_chunked "
         f"{r['chunked_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
-        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s; max abs err {err:.2e} vs "
+        f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s; max abs err {err:.2e} vs "
         f"ssd_ref, {err_chunked:.2e} vs ssd_chunked (|y| up to {scale:.1f})")
     del ins, got, w
 
@@ -465,7 +629,8 @@ def main() -> int:
     copied0 = HostToDevice.copied_bytes
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    responses, engine = serve.main(argv)
+    with eviction_log() as evicted:
+        responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     serve_shapes = Counter({(kn, key): c for kn, by_shape in
                             ops.launch_counts_by_shape().items()
@@ -493,14 +658,21 @@ def main() -> int:
     check(engine.peak_memory() <= budget,
           f"pool peak {engine.peak_memory()} > budget {budget}")
     check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
-    hw = engine.hw
-    log(f"[serve] planned with {hw}: fits_budget "
-        f"{engine.multi_plan.fits_budget()} peaks "
-        f"{ {n: round(p / 1e6, 1) for n, p in engine.multi_plan.peaks.items()} } MB")
-    log(f"[serve] pool peak {engine.peak_memory() / 1e6:.1f} MB of "
-        f"{budget / 1e6:.1f} MB, hit rate {engine.cache_hit_rate():.3f}, "
-        f"host-to-device {streamed / 1e6:.1f} MB, max_memory_allocated "
-        f"{serve_mem / 1e6:.1f} MB, wall {serve_s:.2f}s")
+
+    def log_plan(tag, engine, streamed, evicted):
+        log(f"[{tag}] planned with {engine.hw}: fits_budget "
+            f"{engine.multi_plan.fits_budget()} peaks "
+            f"{ {n: round(p / 1e6, 1) for n, p in engine.multi_plan.peaks.items()} } MB; "
+            f"stall events per request "
+            f"{[s.stall_events for s in engine.stats_log]}")
+        log(f"[{tag}] pool peak {engine.peak_memory() / 1e6:.1f} MB of "
+            f"{budget / 1e6:.1f} MB, hit rate {engine.cache_hit_rate():.3f}, "
+            f"host-to-device {streamed / 1e6:.1f} MB")
+        log(f"[{tag}] evictions in order: {eviction_order(evicted)}")
+
+    log_plan("serve", engine, streamed, evicted)
+    log(f"[serve] max_memory_allocated {serve_mem / 1e6:.1f} MB, wall "
+        f"{serve_s:.2f}s")
     # each response against the plain-version forward of the same model
     # and tokens (the same op program with kernels.ref in the kernels' place)
     tokens = {r.req_id: r.tokens for r in serve.make_requests(
@@ -558,6 +730,40 @@ def main() -> int:
     else:
         log("[stream] the profiler saw no device time: idle share not measured")
     del responses, engine, resp, prof, w, arr, chunks
+
+    # ---- 5c. the same requests planned with the previous kernel's rate ----
+    # everything else calibrated on this card in this run, so a difference
+    # from phase 5 comes from the plan the faster kernel's rate makes
+    calibrated = HWSpec.cuda_calibrated
+
+    def previous_rate(device=None):
+        return replace(calibrated(device), peak_flops=PREVIOUS_PEAK_FLOPS)
+
+    log(f"[serve-previous-rate] the same run with HWSpec.peak_flops pinned "
+        f"to {PREVIOUS_PEAK_FLOPS:.6g} FLOP/s")
+    copied0 = HostToDevice.copied_bytes
+    with mock.patch.object(HWSpec, "cuda_calibrated",
+                           staticmethod(previous_rate)), \
+            eviction_log() as evicted:
+        responses, engine = serve.main(argv)
+    torch.cuda.synchronize()
+    check(engine.hw.peak_flops == PREVIOUS_PEAK_FLOPS,
+          f"the engine planned with {engine.hw}")
+    check(len(responses) == REQUESTS, f"{len(responses)} responses")
+    check(engine.peak_memory() <= budget,
+          f"pool peak {engine.peak_memory()} > budget {budget}")
+    check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
+    log_plan("serve-previous-rate", engine,
+             HostToDevice.copied_bytes - copied0, evicted)
+    for r in responses:
+        check(tuple(r.result.shape) == (1, SEQ, engine.models[r.model].cfg
+                                        .d_model)
+              and bool(torch.isfinite(r.result).all()),
+              f"{r.model} result {tuple(r.result.shape)} not finite")
+        log(f"[serve-previous-rate] {r.model} req {r.req_id}: latency "
+            f"{r.latency_s:.4f}s init {r.init_s:.4f}s exec {r.exec_s:.4f}s "
+            f"hits {r.cache_hits} misses {r.cache_misses}")
+    del responses, engine
 
     # ---- 6. online: a padded batch de-batched on the card -----------------
     on_argv = ["--device", "cuda", "--models", "gptneo-s", "--online",
@@ -756,14 +962,16 @@ def main() -> int:
         flops, nbytes = shape_work("layout_pack", shape[1])
         bms, bby = bound_ms(flops, nbytes, peaks)
         measured[shape] = {
-            "ms": median_ms(lambda: layout_pack(w)),
-            "plain_ms": median_ms(lambda: ref.layout_pack_ref(w, (tr, tc))),
+            "ms": call_ms(lambda: layout_pack(w)),
+            "device_ms": device_ms(lambda: layout_pack(w)),
+            "plain_ms": call_ms(lambda: ref.layout_pack_ref(w, (tr, tc))),
             "library_ms": None, "bound_ms": bms, "bound_by": bby,
             "max_abs_err": (got.float() - want.float()).abs().max().item()}
         m_ = measured[shape]
-        log(f"[pack] {shape}: kernel {m_['ms']:.4f} ms, plain "
-            f"{m_['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
-            f"{nbytes / 1e6:.1f} MB), {nbytes / m_['ms'] / 1e6:.0f} GB/s, "
+        log(f"[pack] {shape}: one call: kernel {m_['ms']:.4f} ms, plain "
+            f"{m_['plain_ms']:.4f} ms; device time {m_['device_ms']:.4f} ms; "
+            f"bound {bms:.4f} ms ({bby}, {nbytes / 1e6:.1f} MB), "
+            f"{nbytes / m_['device_ms'] / 1e6:.0f} GB/s, "
             f"bit-exact")
         del w, got, want
     log(f"[pack] ops.pack over {len(layer_w)} weights of a {SERVE_MODELS[0]} "
@@ -782,8 +990,12 @@ def main() -> int:
         total = sum(weights.values())
         check(total > 0, f"{kn} was not launched on its path")
         mean = {f: sum(measured[s][f] * c for s, c in weights.items()) / total
-                for f in ("ms", "plain_ms", "bound_ms")}
-        lib = [measured[s]["library_ms"] for s in weights]
+                for f in ("ms", "plain_ms", "bound_ms", "device_ms")}
+
+        def lib_mean(f):
+            lib = [measured[s].get(f) for s in weights]
+            return None if None in lib else sum(
+                measured[s][f] * c for s, c in weights.items()) / total
         by = Counter()
         for s, c in weights.items():
             by[measured[s]["bound_by"]] += c
@@ -793,15 +1005,20 @@ def main() -> int:
             "max_abs_err": max(measured[s]["max_abs_err"] for s in weights),
             "ms": mean["ms"], "plain_ms": mean["plain_ms"],
             "bound_ms": mean["bound_ms"], "bound_by": by.most_common(1)[0][0],
-            "library_ms": None if None in lib else sum(
-                measured[s]["library_ms"] * c for s, c in weights.items())
-            / total,
+            "library_ms": lib_mean("library_ms"),
+            "device_ms": mean["device_ms"],
+            "library_device_ms": lib_mean("library_device_ms"),
             "per_shape": [{"shape": [str(v) if isinstance(v, torch.dtype)
                                      else v for v in s[1]],
                            "launches": c, **measured[s]}
                           for s, c in sorted(weights.items(), key=str)]})
-    log("kernels: " + " ".join(f"{k['name']}=ok ({k['launches']} launches)"
-                               for k in kernels)
+    log("kernels: " + " ".join(
+        f"{k['name']}=ok ({k['launches']} launches, one call {k['ms']:.4f} ms"
+        + (f" = {k['ms'] / k['library_ms']:.3f}x the library"
+           if k["library_ms"] else "")
+        + f", device time {k['device_ms']:.4f} ms"
+        + (f" = {k['device_ms'] / k['library_device_ms']:.3f}x the library"
+           if k["library_device_ms"] else "") + ")" for k in kernels)
         + f"; serving max abs err vs plain {serve_err:.2e}; Mamba-2 prefill "
         f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")

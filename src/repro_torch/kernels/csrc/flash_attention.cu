@@ -7,25 +7,46 @@
 // Pallas kernel with grid (B*H, Sq/bq, Sk/bkv) that carries m, l and acc
 // in VMEM scratch across the sequential KV axis and skips invisible
 // blocks. On the card one block owns one (batch*head, 64-query tile) and
-// walks the KV tiles in a loop; m, l and acc stay in registers.
+// walks the visible KV tiles in a loop; m, l and acc stay in registers.
 //
 // What bounds it on an H100: at the serving shapes (S = 1024, hd = 64 or
 // 128, causal, f32) it is bound by operations: 4 * S^2 * hd * H / 2 FLOP
 // (QK^T and PV under the causal mask) against a few MB of q, k, v and o.
-// The scores never touch device memory.
+// The scores never touch device memory. The f32 path stays off the tensor
+// cores: TF32 would not hold the 2e-5 tolerance the serving checks were
+// set for, so the work is to keep the FMA pipes fed.
 //
-// What the design does about it: 128 threads per block. A thread owns
-// four query rows (ty + 16 i) and eight key columns (tx + 8 j) of each
-// 64 x 64 score tile, and hd / 8 output columns, so QK^T and PV both run
-// from registers fed by 16-byte shared-memory reads without bank
-// conflicts. Row max and row sum reduce over the eight lanes of a row
-// with warp shuffles. K and V share one shared buffer (the block loads K,
-// takes the scores, then loads V), which keeps the block under 86 KB so
-// two blocks share an SM and one's loads overlap the other's math. KV
-// tiles that the mask hides entirely are skipped, as in the Pallas kernel,
-// and the heaviest causal query tiles are launched first. Masked scores
-// take -1e30 as in the Pallas kernel; keys past Sk take no part; the
-// output is acc / max(l, 1e-30).
+// What held the first version back: K and V shared one shared-memory
+// buffer (two exposed load latencies a KV tile), every element was staged
+// through a register with an integer division, P went through
+// block-shared memory between block-wide barriers, and the grid put the
+// heavy causal tiles of one head after another.
+//
+// The design (FlashAttention-2's, on the FMA units), 4 warps a block:
+// * Each warp owns 16 query rows; its lanes form a 4 x 8 grid, a lane
+//   owning rows ty + 4 i (i < 4) and keys tx + 8 j of each KV tile. Row
+//   max and row sum reduce over the 8 lanes of a row with shuffles, and P
+//   goes through the warp's own slice of shared memory behind __syncwarp,
+//   so the softmax needs no block barrier.
+// * Q is copied into shared memory once. K and V each have a two-stage
+//   ring filled by 16-byte cp.async copies: tile j + 1 is in flight while
+//   tile j is computed, with one block barrier a tile (bf16 is widened to
+//   f32 on its way into the same rings). Row strides of hd + 4 floats
+//   keep the 16-byte reads of 8 neighbouring key rows conflict-free.
+// * KV tiles are 64 keys for hd <= 64 and 32 for hd = 128 (111 KB a
+//   block), so two blocks, 8 warps, share an SM at every head size.
+// * Only tiles that the mask cuts (the diagonal, a window's edge, the
+//   ragged end of K) are masked; hidden tiles are never visited. The grid
+//   is one line of (query tile, batch*head) items, heads fastest, so the
+//   heaviest causal query tiles of all heads launch first.
+// * What bounds it now: a lane's 4 x 4 (hd = 128) or 4 x 8 score tile
+//   reads 1.5-2 bytes of shared memory per FMA in QK^T, above the 1 byte
+//   per FMA an SM's shared memory can feed at its full FMA rate, so QK^T
+//   runs at about half the FMA peak; hd = 128 needs 32-key tiles to fit
+//   two blocks an SM.
+// * Scores are scaled by scale * log2(e) and exponentiated with exp2f.
+//   Masked scores take -1e30 as in the Pallas kernel; keys past Sk take
+//   no part; the output is acc / max(l, 1e-30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,58 +72,106 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;
-constexpr float NEG_INF = -1e30f;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-constexpr size_t smem_bytes(int hd) {
-  return sizeof(float) *
-         (size_t(BQ) * (hd + 4) + size_t(BKV) * (hd + 4) + size_t(BQ) * (BKV + 4));
+constexpr int BQ = 64;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int WROWS = BQ / WARPS;  // query rows a warp owns
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+__host__ __device__ constexpr int kv_tile() { return HD == 128 ? 32 : 64; }
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  constexpr int BKV = kv_tile<HD>();
+  return sizeof(float) * (size_t(BQ) * (HD + 4) + 4 * size_t(BKV) * (HD + 4) +
+                          size_t(BQ) * (BKV + 8));
 }
 
 // rows [0, n) of a [rows, heads, HD] slab (row stride `stride` elements)
-// into a padded shared tile; rows past `n` read as zero
+// into a shared tile of row stride HD + 4 floats; rows past n read as zero
 template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int dst_stride,
+__device__ __forceinline__ void load_rows(float* dst,
                                           const T* __restrict__ src,
                                           size_t stride, int n) {
-  constexpr int PER = ROWS * HD / THREADS;
-#pragma unroll 8
-  for (int r = 0; r < PER; ++r) {
+  constexpr int QS = HD + 4;
+  constexpr int CHUNKS = HD / 4;  // 4 elements each
+#pragma unroll 4
+  for (int r = 0; r < ROWS * CHUNKS / THREADS; ++r) {
     const int idx = threadIdx.x + r * THREADS;
-    const int row = idx / HD;
-    const int d = idx % HD;
-    dst[row * dst_stride + d] =
-        row < n ? to_f32(src[(size_t)row * stride + d]) : 0.f;
+    const int row = idx / CHUNKS, d = (idx % CHUNKS) * 4;
+    const bool ok = row < n;
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(&dst[row * QS + d], ok ? &src[(size_t)row * stride + d] : src,
+                 ok);
+    } else {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) {
+        const T* p = &src[(size_t)row * stride + d];
+        v = make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]),
+                        to_f32(p[3]));
+      }
+      *reinterpret_cast<float4*>(&dst[row * QS + d]) = v;
+    }
   }
 }
 
+// whether any (query, key) pair of the query tile at q0 and the KV tile
+// at k0 is visible
+__device__ __forceinline__ bool tile_visible(int q0, int k0, int bkv,
+                                             int causal, int window) {
+  const int rel = q0 - k0;
+  bool vis = true;
+  if (causal) vis = rel + BQ - 1 >= 0;
+  if (window) vis = vis && (rel - (bkv - 1) < window);
+  return vis;
+}
+
+// One block per (batch*head, query tile): block x takes query tile x / nbh
+// (counted from the last when causal, so the heaviest tiles of every head
+// launch first) of batch*head x % nbh.
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             int hq, int hkv, int causal, int window, float scale) {
-  constexpr int QS = HD + 4;          // row stride of the Q and K/V tiles
-  constexpr int PS = BKV + 4;         // row stride of the P tile
+             int hq, int hkv, int causal, int window, float scale, int nbh) {
+  constexpr int BKV = kv_tile<HD>();
+  constexpr int QS = HD + 4;            // row stride of the Q, K, V tiles
+  constexpr int PS = BKV + 8;           // row stride of a warp's P rows
+  constexpr int NJ = BKV / 8;           // keys a lane owns in a tile
   constexpr int VW = HD >= 32 ? 4 : 2;  // output columns per group
   constexpr int NG = HD / (8 * VW);     // groups of output columns
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* KVs = Qs + BQ * QS;
-  float* Ps = KVs + BKV * QS;
+  float* Ks = Qs + BQ * QS;             // [2][BKV][QS]
+  float* Vs = Ks + 2 * BKV * QS;        // [2][BKV][QS]
+  float* Ps = Vs + 2 * BKV * QS;        // [WARPS][WROWS][PS]
 
   const int nqt = (sq + BQ - 1) / BQ;
-  // causal: the last query tiles see the most keys; launch them first
-  const int qt = causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int bh = blockIdx.y;
+  const int item = blockIdx.x;
+  const int qt = causal ? nqt - 1 - item / nbh : item / nbh;
+  const int bh = item % nbh;
   const int b = bh / hq;
   const int h = bh % hq;
   const int kvh = h / (hq / hkv);
   const int q0 = qt * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;   // key columns tx + 8 j; output group lane
-  const int ty = tid >> 3;  // query rows ty + 16 i
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 7;   // keys tx + 8 j; output group lane
+  const int ty = lane >> 3;  // rows ty + 4 i of the warp's 16
 
   const size_t q_stride = (size_t)hq * HD;
   const size_t kv_stride = (size_t)hkv * HD;
@@ -110,8 +179,28 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * HD;
   const T* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * HD;
 
-  load_rows<T, HD, BQ>(Qs, QS, qb, q_stride, min(BQ, sq - q0));
+  // the visible KV tiles form one run [first, last]
+  const int nkt = (sk + BKV - 1) / BKV;
+  int first = nkt, last = -1;
+  for (int kt = 0; kt < nkt; ++kt)
+    if (tile_visible(q0, kt * BKV, BKV, causal, window)) {
+      first = min(first, kt);
+      last = kt;
+    }
 
+  load_rows<T, HD, BQ>(Qs, qb, q_stride, min(BQ, sq - q0));
+  if (first <= last) {
+    const int k0 = first * BKV;
+    load_rows<T, HD, BKV>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
+                          min(BKV, sk - k0));
+    load_rows<T, HD, BKV>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
+                          min(BKV, sk - k0));
+  }
+  cp_async_commit();
+
+  const int wrow = warp * WROWS + ty;   // block rows wrow + 4 i
+  float* pw = Ps + (warp * WROWS + ty) * PS;
+  const float scale2 = scale * LOG2E;
   float m[4], l[4], acc[4][NG * VW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -121,39 +210,44 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NG * VW; ++c) acc[i][c] = 0.f;
   }
 
-  const int nkt = (sk + BKV - 1) / BKV;
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int kt = first; kt <= last; ++kt) {
+    const int slot = (kt - first) & 1;
     const int k0 = kt * BKV;
-    const int rel = q0 - k0;
-    bool visible = true;
-    if (causal) visible = rel + BQ - 1 >= 0;
-    if (window) visible = visible && (rel - (BKV - 1) < window);
-    if (!visible) continue;  // uniform across the block
     const int kn = min(BKV, sk - k0);
+    cp_async_wait_all();  // this thread's copies of tile kt (and Q) landed
+    __syncthreads();      // everyone's have; tile kt - 1 is consumed
+    if (kt + 1 <= last) {
+      const int k1 = k0 + BKV;
+      load_rows<T, HD, BKV>(Ks + (slot ^ 1) * BKV * QS,
+                            kb + (size_t)k1 * kv_stride, kv_stride,
+                            min(BKV, sk - k1));
+      load_rows<T, HD, BKV>(Vs + (slot ^ 1) * BKV * QS,
+                            vb + (size_t)k1 * kv_stride, kv_stride,
+                            min(BKV, sk - k1));
+    }
+    cp_async_commit();
+    const float* ks = Ks + slot * BKV * QS;
+    const float* vs = Vs + slot * BKV * QS;
 
-    __syncthreads();  // the previous tile's PV reads of KVs and Ps are done
-    load_rows<T, HD, BKV>(KVs, QS, kb + (size_t)k0 * kv_stride, kv_stride, kn);
-    __syncthreads();
-
-    // S = Q K^T for rows ty + 16 i, columns tx + 8 j
-    float s[4][8];
+    // S = Q K^T for rows wrow + 4 i, keys tx + 8 j
+    float s[4][NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[8];
+      float4 qv[4], kv[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * QS + d]);
+        qv[i] = *reinterpret_cast<const float4*>(&Qs[(wrow + 4 * i) * QS + d]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&KVs[(tx + 8 * j) * QS + d]);
+      for (int j = 0; j < NJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(&ks[(tx + 8 * j) * QS + d]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
           s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
           s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
@@ -161,19 +255,28 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    // mask, online softmax, P -> shared
+    // mask (only where the tile is cut), online softmax, P -> the warp's
+    // rows of shared memory
+    bool full = kn == BKV;
+    if (causal) full = full && k0 + BKV - 1 <= q0;
+    if (window) full = full && q0 + BQ - 1 - k0 < window;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      const int qi = q0 + wrow + 4 * i;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kj = k0 + tx + 8 * j;
-        bool vis = true;
-        if (causal) vis = qi >= kj;
-        if (window) vis = vis && (qi - kj < window);
-        s[i][j] = vis ? s[i][j] * scale : NEG_INF;
-        if (tx + 8 * j < kn) mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < NJ; ++j) {
+        if (full) {
+          s[i][j] *= scale2;
+          mx = fmaxf(mx, s[i][j]);
+        } else {
+          const int kj = k0 + tx + 8 * j;
+          bool vis = true;
+          if (causal) vis = qi >= kj;
+          if (window) vis = vis && (qi - kj < window);
+          s[i][j] = vis ? s[i][j] * scale2 : NEG_INF;
+          if (tx + 8 * j < kn) mx = fmaxf(mx, s[i][j]);
+        }
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -181,34 +284,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_new = fmaxf(m[i], mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = tx + 8 * j < kn ? expf(s[i][j] - m_new) : 0.f;
+      for (int j = 0; j < NJ; ++j) {
+        const float p =
+            full || tx + 8 * j < kn ? exp2f(s[i][j] - m_new) : 0.f;
         sum += p;
-        Ps[(ty + 16 * i) * PS + tx + 8 * j] = p;
+        pw[4 * i * PS + tx + 8 * j] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      const float corr = expf(m[i] - m_new);
+      const float corr = exp2f(m[i] - m_new);
       l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < NG * VW; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();  // all scores read K; P is complete
-    load_rows<T, HD, BKV>(KVs, QS, vb + (size_t)k0 * kv_stride, kv_stride, kn);
-    __syncthreads();
+    __syncwarp();  // the warp's P rows are complete
 
-    // acc += P V for rows ty + 16 i, columns g * 8 * VW + tx * VW + e
+    // acc += P V for rows wrow + 4 i, columns g * 8 * VW + tx * VW + e
 #pragma unroll 2
     for (int j = 0; j < BKV; j += 4) {
       float4 pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * PS + j]);
+        pv[i] = *reinterpret_cast<const float4*>(&pw[4 * i * PS + j]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = &KVs[(j + jj) * QS];
+        const float* vrow = &vs[(j + jj) * QS];
         float vv[NG * VW];
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
@@ -235,20 +337,27 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  cp_async_wait_all();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
+    const int row = wrow + 4 * i;
     if (q0 + row >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = o + ((size_t)b * sq + q0 + row) * q_stride + (size_t)h * HD;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int g = 0; g < NG; ++g) {
+      const int c0 = g * 8 * VW + tx * VW;
+      if constexpr (sizeof(T) == 4 && VW == 4) {
+        *reinterpret_cast<float4*>(&orow[c0]) = make_float4(
+            acc[i][g * 4] * inv, acc[i][g * 4 + 1] * inv,
+            acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
+      } else {
 #pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const int c = g * 8 * VW + tx * VW + e;
-        orow[c] = from_f32<T>(acc[i][g * VW + e] * inv);
+        for (int e = 0; e < VW; ++e)
+          orow[c0 + e] = from_f32<T>(acc[i][g * VW + e] * inv);
       }
+    }
   }
 }
 
@@ -256,16 +365,20 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int hq, int hkv, int causal, int window,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + BQ - 1) / BQ, b * hq);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+  constexpr size_t smem = smem_bytes<HD>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int items = b * hq * ((sq + BQ - 1) / BQ);
+  flash_kernel<T, HD><<<items, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hq, hkv, causal,
-      window, scale);
+      window, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,7 +405,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a CUDA error code (0 = none).
+// dtype: 0 = float32, 1 = bfloat16. q, k, v and o start on 16-byte
+// boundaries. Returns a CUDA error code (0 = none).
 extern "C" int fm_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int sq, int sk, int hq,
                                   int hkv, int hd, int causal, int window,

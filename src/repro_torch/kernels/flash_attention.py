@@ -10,6 +10,7 @@ is the same function in plain PyTorch, which the CPU path runs and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections import Counter
 
@@ -26,6 +27,12 @@ HEAD_DIMS = (16, 32, 64, 128)
 # kernel launches since the last reset, by (B, Sq, Sk, Hq, Hkv, hd, causal,
 # window)
 launches: Counter = Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded at first use."""
+    return _build.library("flash_attention", _ARGTYPES).fm_flash_attention
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,15 +56,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes f32 or bf16 of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous, starting on a 16-byte boundary (the kernel's copies)
+    q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+               else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    lib = _build.library("flash_attention", _ARGTYPES)
-    err = lib.fm_flash_attention(
+    err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, hq,
         hkv, hd, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
     launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window))] += 1
     return o

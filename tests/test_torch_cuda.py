@@ -14,10 +14,13 @@ import torch
 from repro_torch.kernels import ops, ref
 
 MM_SHAPES = [(8, 128, 128), (64, 256, 128), (128, 128, 384), (256, 512, 256),
-             (40, 128, 256), (37, 100, 61), (1024, 768, 3072)]
+             (40, 128, 256), (37, 100, 61), (33, 130, 770), (1024, 768, 3072),
+             (1024, 2048, 2048), (1024, 3072, 768), (1024, 2048, 8192),
+             (64, 3100, 768), (33, 3074, 770)]
 FA_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
              (2, 64, 64, 2, 1, 16), (1, 128, 128, 8, 8, 128),
-             (1, 100, 100, 4, 2, 64), (1, 1024, 1024, 12, 12, 64)]
+             (1, 100, 100, 4, 2, 64), (1, 1024, 1024, 12, 12, 64),
+             (1, 1024, 1024, 16, 16, 128), (1, 100, 100, 4, 2, 128)]
 MASKS = [(True, 0), (True, 64), (False, 0)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,13 +71,17 @@ def test_flash_attention_kernel(dev, b, sq, sk, hq, hkv, hd, causal, window,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
-def test_matmul_rows_do_not_depend_on_the_batch(dev):
+@pytest.mark.parametrize("k,n,split", [(768, 2048, False), (768, 3072, True),
+                                       (3072, 768, True)])
+def test_matmul_rows_do_not_depend_on_the_batch(dev, k, n, split):
     """A row of C is the same alone or inside a larger M: one K order,
-    tiles chosen from N only."""
-    from repro_torch.kernels.streamed_matmul import streamed_matmul
-    rng = np.random.default_rng(5)
-    a = _normal(rng, (300, 768)).to(dev)
-    b = _normal(rng, (768, 2048)).to(dev)
+    the plan chosen from N and K only; where the plan splits K, a second
+    kernel adds the partial sums in split order."""
+    from repro_torch.kernels.streamed_matmul import streamed_matmul, tile_for
+    assert (tile_for(n, k) > 1) == split
+    rng = np.random.default_rng(k + n)
+    a = _normal(rng, (300, k)).to(dev)
+    b = _normal(rng, (k, n), k ** -0.5).to(dev)
     full = streamed_matmul(a, b)
     part = streamed_matmul(a[17:18].clone(), b)
     torch.cuda.synchronize()

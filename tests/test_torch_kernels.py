@@ -85,3 +85,28 @@ def test_attention_plain_dtypes(dtype):
     np.testing.assert_allclose(
         _f32(got), _f32(jax_ops.attention(qj, kj, vj, block_q=64,
                                           block_kv=64)), atol=tol)
+
+
+# (N, K) -> the number of K splits the plan gives the serving shapes
+# (GPT-Neo-1.3B and GPT-Neo-S at 1024 tokens) and odd shapes, among them
+# splits of a K that is no multiple of the split count times the K tile
+PLAN_CASES = [(2048, 2048, 1), (8192, 2048, 1), (2048, 8192, 1),
+              (768, 768, 2), (3072, 768, 2), (768, 3072, 8), (61, 100, 1),
+              (770, 130, 1), (50257, 2048, 1), (128, 128, 1),
+              (768, 3100, 8), (770, 3074, 2)]
+
+
+@pytest.mark.parametrize("n,k,splits", PLAN_CASES)
+def test_matmul_plan_reads_n_and_k_only(n, k, splits):
+    """The CUDA matmul's plan is a function of (N, K) alone, so a row of C
+    does not depend on how many rows share the launch, and it is a split of
+    K that the kernel takes (one or more ranges, ``SPLITS``), each range at
+    least ``SPLIT_MIN_K`` deep."""
+    import inspect
+
+    from repro_torch.kernels import streamed_matmul as mm
+    assert list(inspect.signature(mm.tile_for.__wrapped__).parameters) == \
+        ["n", "k"]
+    assert mm.tile_for(n, k) == splits
+    assert splits in mm.SPLITS and (splits == 1
+                                    or k >= splits * mm.SPLIT_MIN_K)
