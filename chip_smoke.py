@@ -12,7 +12,9 @@ executors, then drives each path through the port's own entry points:
   ``flash_attention``);
 * the model path: Mamba-2-130M (full width, all 24 layers, random weights
   from a seed) through ``models.model.make_step_bundle``, three prefill
-  requests at batch 4 x 4096 tokens (``ssd_scan`` in every layer), greedy
+  requests at batch 4 x 4096 tokens (``ssd_scan`` in every layer), one
+  more under the profiler (device time of ``ssd_scan``, of the matmuls and
+  of the rest by kernel name, and the compute stream's idle share), greedy
   decode, and decode against prefill;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
@@ -28,6 +30,11 @@ dispatch included, the median of 20 calls. ``device_ms`` (and the library
 call's ``library_device_ms``) is device time per call: CUDA events around
 20 back-to-back calls, so the host's dispatch of a call overlaps the
 device's work on the one before, the median of 5 rounds.
+
+``ssd_scan`` runs as three passes in four CUDA launches, counted as one
+call; phase 3d holds each pass against its plain statement
+(``kernels.ssd_scan.chunk_states``, ``state_passing``, ``chunk_outputs``)
+and prints its device time by profiler kernel name against its own bound.
 
 Phase 5c serves the same requests once more with the planner's f32 rate
 pinned to what the previous version of the matmul kernel calibrated to,
@@ -78,6 +85,14 @@ MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_SEQ, MAMBA_REQUESTS = 4, 4096, 3
 DECODE_STEPS = 32
 CONSIST_BATCH, CONSIST_SEQ = 2, 256
+# the CUDA kernels of one ssd_scan call, by profiler name: its pass and
+# the ptxas entry of the build that runs with 16-byte aligned rows
+SSD_PASSES = {"chunk_state_kernel": ("1 chunk states", "ILi4E"),
+              "state_pass_kernel": ("2 state passing", "E"),
+              "cb_kernel": ("3a C B^T", "ILi4E"),
+              "chunk_out_kernel": ("3b chunk outputs", "ILi4E")}
+# profiler names of the library's matmul kernels (cuBLAS, CUTLASS)
+MATMUL_NAMES = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 # Mamba-2 logits of two runs that differ only in the order of the SSD's
 # f32 sums (kernel vs ssd_chunked in prefill, or the recurrence step by
 # step in decode vs the chunked scan): with these random weights the bf16
@@ -225,6 +240,60 @@ def shape_work(kernel: str, key):
     return 4.0 * hd * pairs * hq * b, 4.0 * b * hd * (2 * sq * hq + 2 * sk * hkv)
 
 
+def ssd_pass_work(key) -> dict:
+    """{pass: (FLOPs, bytes)} of each pass of one ``ssd_scan`` call at
+    ``key`` (B, S, H, P, N, Q), f32: each pass's inputs read once and its
+    outputs written once, the workspace included. Pass 1 forms each
+    chunk's state (2QNP a chunk and head), pass 2 hands the states on (2NP),
+    pass 3a C B^T over the causal pairs once per batch row (2N a pair; it
+    writes whole 64 x 64 causal tiles), pass 3b the causal (..) X (2P a
+    pair) and C . S_in (2QNP)."""
+    b, s, h, p, n, q = key
+    nc, pairs = s // q, q * (q + 1) / 2
+    tiles = -(-q // 64)
+    g_tiles = b * nc * tiles * (tiles + 1) / 2 * 64 * 64
+    states = b * h * nc * n * p
+    return {
+        "1 chunk states": (2.0 * b * h * s * n * p, 4.0 * (
+            b * s * h * p + b * s * n + b * s * h + states + b * h * s
+            + b * h * nc)),
+        "2 state passing": (2.0 * states, 4.0 * (2 * states + b * h * nc)),
+        "3a C B^T": (2.0 * n * pairs * b * nc, 4.0 * (2 * b * s * n
+                                                      + g_tiles)),
+        "3b chunk outputs": (b * h * nc * (2 * pairs * p + 2 * q * n * p),
+                             4.0 * (2 * b * s * h * p + b * s * n + states
+                                    + g_tiles + 2 * b * h * s))}
+
+
+def device_by_name(prof) -> Counter:
+    """Device time in ms by kernel name of a profiler run."""
+    out = Counter()
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            out[ev.key] += dev_us / 1e3
+    return out
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name cut to what tells PyTorch's generic kernels
+    apart: the functors and ops named in its template arguments (e.g.
+    ``vectorized_elementwise_kernel[CUDAFunctor_add]``), else its head."""
+    name = name.replace("(anonymous namespace)::", "")
+    if "<" not in name:
+        return name[:70]
+    head = re.split(r"[<(]", name.replace("void ", "", 1), 1)[0]
+    ops = list(dict.fromkeys(re.findall(
+        r"\b(\w*(?:Functor|_functor)\w*|\w+Op|\w+_kernel_cuda)\b", name)))
+    return f"{head}[{', '.join(ops[:3])}]" if ops else head[:70]
+
+
+def ssd_pass_of(name: str):
+    """The ``ssd_scan`` pass a profiler kernel name belongs to, or None."""
+    return next((label for k, (label, _) in SSD_PASSES.items() if k in name),
+                None)
+
+
 def weight_shapes(cfg) -> dict:
     """(K, N) of each projection weight of a GPT-Neo-style ``cfg``."""
     d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
@@ -340,6 +409,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.layout_pack import layout_pack
+    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan
     from repro_torch.kernels.streamed_matmul import streamed_matmul, tile_for
     from repro_torch.launch import serve
@@ -522,8 +592,10 @@ def main() -> int:
 
     # (c) ssd_scan against the sequential recurrence on the JAX kernel
     # tests' sweep (tests/test_kernels.py:56-91) plus a length whose chunk
-    # halves, at that file's tolerance; layout_pack bit for bit on its
-    # sweep (tests/test_kernels.py:94-106) in f32 and bf16
+    # halves, 25 heads (no multiple of the output pass's 4) and 64 chunks
+    # (more than the state pass loads at once), at that file's tolerance;
+    # layout_pack bit for bit on its sweep (tests/test_kernels.py:94-106)
+    # in f32 and bf16
     def ssd_inputs(b_, s, h, p, n):
         """SSD operands as the model hands them over: x, b and c slices of
         one conv output, dt softplus'ed, a negative, d from a normal."""
@@ -535,7 +607,8 @@ def main() -> int:
 
     sweep_ssd = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
                  (1, 256, 4, 8, 4, 16), (2, 96, 2, 16, 8, 32),
-                 (1, 96, 2, 16, 8, 64)]
+                 (1, 96, 2, 16, 8, 64), (1, 512, 25, 64, 128, 256),
+                 (1, 4096, 3, 16, 8, 64)]
     for (b_, s, h, p, n, ch) in sweep_ssd:
         ins = ssd_inputs(b_, s, h, p, n)
         got = ssd_scan(*ins, chunk=ch)
@@ -591,6 +664,59 @@ def main() -> int:
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
         f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s; max abs err {err:.2e} vs "
         f"ssd_ref, {err_chunked:.2e} vs ssd_chunked (|y| up to {scale:.1f})")
+
+    # the passes: what each left in the workspace against its plain
+    # statement on the same inputs (f32 order of the sums only: within
+    # 1e-4 of each quantity's scale; C B^T where j <= i, the part the
+    # output pass reads), then each pass's device time by kernel name
+    # against its own bound, and its registers and spills
+    y_k, l_k, s_k, g_k = ssd_mod.ssd_scan_with_passes(*ins, chunk=sc.chunk)
+    x_, dt_, a_, b_, c_, d_ = ins
+    l_p, decay_p, ds_p = ssd_mod.chunk_states(x_, dt_, a_, b_, sc.chunk)
+    s_p, _ = ssd_mod.state_passing(decay_p, ds_p)
+    y_p = ssd_mod.chunk_outputs(x_, dt_, b_, c_, d_, l_p, s_p)
+    cr = c_.reshape(MAMBA_BATCH, -1, ssd_key[5], ssd_key[4])
+    br = b_.reshape(MAMBA_BATCH, -1, ssd_key[5], ssd_key[4])
+    g_p = torch.einsum("bcin,bcjn->bcij", cr, br).tril()
+    torch.cuda.synchronize()
+    pass_err = {}
+    for what, got_, want_ in (("L", l_k, l_p), ("S_in", s_k, s_p),
+                              ("C B^T", g_k.tril(), g_p), ("y", y_k, y_p)):
+        pass_err[what] = close(got_, want_, 1e-4 * want_.abs().max().item(),
+                               0.0, f"ssd_scan pass output {what} vs its "
+                               f"plain statement")
+    del y_k, l_k, s_k, g_k, l_p, decay_p, ds_p, s_p, y_p, cr, br, g_p
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED):
+            ssd_scan(*ins, chunk=sc.chunk)
+        torch.cuda.synchronize()
+    by_pass = Counter()
+    for kname, ms_ in device_by_name(prof).items():
+        label = ssd_pass_of(kname)
+        check(label is not None, f"ssd_scan ran an unknown kernel {kname}")
+        by_pass[label] += ms_ / TIMED
+    check(set(by_pass) == {label for label, _ in SSD_PASSES.values()},
+          f"ssd_scan ran the passes {sorted(by_pass)}")
+    passes = {}
+    for kname, (label, entry) in SSD_PASSES.items():
+        p_flops, p_bytes = ssd_pass_work(ssd_key)[label]
+        p_bms, p_bby = bound_ms(p_flops, p_bytes, peaks)
+        regs = entry_usage("ssd_scan", kname + entry)
+        passes[label] = {"kernel": kname, "device_ms": by_pass[label],
+                         "bound_ms": p_bms, "bound_by": p_bby,
+                         "registers": regs[0], "spill_bytes": None
+                         if regs[0] is None else regs[1] + regs[2]}
+        log(f"[kernels] ssd_scan pass {label} ({kname}): device time "
+            f"{by_pass[label]:.4f} ms, bound {p_bms:.4f} ms ({p_bby}, "
+            f"{p_flops / 1e9:.2f} GFLOP, {p_bytes / 1e6:.1f} MB), "
+            f"{p_bms / by_pass[label]:.1%} of the bound; {regs[0]} "
+            f"registers, {regs[1]} B spill stores, {regs[2]} B spill loads")
+    r["passes"], r["pass_max_abs_err"] = passes, pass_err
+    log(f"[kernels] ssd_scan passes: {sum(by_pass.values()):.4f} ms of "
+        f"device time in all (profiler), {bms / r['device_ms']:.1%} of the "
+        f"bound in device time (events); each pass's output held against "
+        f"its plain statement within 1e-4 of its scale: max abs err "
+        f"{ {k: f'{v:.2e}' for k, v in pass_err.items()} }")
     del ins, got, w
 
     # ---- 4. executors: GPT-Neo-S streamed vs preloaded --------------------
@@ -837,6 +963,41 @@ def main() -> int:
         f"logits {tuple(logits[0].shape)} finite; launches "
         f"{ {f'{kn}{key}': c for (kn, key), c in mamba_shapes.items()} } "
         f"({mcfg.num_layers} per request)")
+
+    # one more warm prefill under the profiler (its launches are not
+    # counted above): device time of ssd_scan (all passes), of the matmuls
+    # (the projections and lm_head, torch.matmul) and of the rest by kernel
+    # name, and the share of the wall the compute stream was idle
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pre.fn(params, {"tokens": requests[-1]})
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    split = Counter()
+    rest = Counter()
+    for kname, ms_ in device_by_name(prof).items():
+        if ssd_pass_of(kname):
+            split["ssd_scan"] += ms_
+        elif MATMUL_NAMES.search(kname):
+            split["matmul"] += ms_
+        else:
+            split["rest"] += ms_
+            rest[kname] += ms_
+    busy = sum(split.values())
+    check(split["ssd_scan"] > 0, "the profiler saw no ssd_scan in a prefill")
+    warm = min(walls[1:])
+    log(f"[mamba] profiled prefill of {MAMBA_BATCH} x {MAMBA_SEQ}: wall "
+        f"{prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device time "
+        f"ssd_scan {split['ssd_scan']:.3f} ms "
+        f"({split['ssd_scan'] / 1e3 / warm:.1%} of the warm wall), matmuls "
+        f"{split['matmul']:.3f} ms, the rest {split['rest']:.3f} ms; compute "
+        f"stream busy {busy:.3f} ms, idle {1 - busy / 1e3 / prof_wall:.1%} "
+        f"of the profiled wall ({1 - busy / 1e3 / warm:.1%} of the warm "
+        f"wall)")
+    log(f"[mamba] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(10)))
+    del prof
 
     def logits_close(got, want, what):
         """Max abs and relative L2 error of two runs' logits, checked

@@ -164,12 +164,15 @@ def test_executors_on_the_card(dev):
 
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's sweep, a length whose
-# chunk halves (96 % 64 -> 32), a ragged chunk (100 -> 50) and the
-# Mamba-2-130M head shape at a short length
+# chunk halves (96 % 64 -> 32), a ragged chunk (100 -> 50), the
+# Mamba-2-130M head shape at a short length, head counts that are no
+# multiple of the output pass's group of 4 heads (3, 25), and more chunks
+# (64) than the state pass loads at once (8)
 SSD_SHAPES = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
               (1, 256, 4, 8, 4, 16), (2, 96, 2, 16, 8, 32),
               (1, 96, 2, 16, 8, 64), (1, 100, 2, 64, 16, 256),
-              (2, 512, 3, 64, 128, 256)]
+              (2, 512, 3, 64, 128, 256), (1, 512, 25, 64, 128, 256),
+              (1, 4096, 3, 16, 8, 64)]
 PACK_CASES = [(64, 256), (70, 300), (128, 384), (8, 128), (33, 129),
               (2048, 8192)]
 
@@ -193,6 +196,20 @@ def test_ssd_scan_kernel(dev, b, s, h, p, n, chunk):
     torch.testing.assert_close(got, ref.ssd_ref(*ins), atol=2e-3, rtol=1e-3)
 
 
+def test_ssd_scan_at_the_mamba2_prefill_shape(dev):
+    """The Mamba-2-130M prefill shape (4 x 4096 tokens, 24 heads of 64,
+    d_state 128, chunk 256) against the chunked form the CPU path runs:
+    f32 summation order only, so within 1e-4 of y's scale."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+    ins = _ssd_inputs(np.random.default_rng(14), 4, 4096, 24, 64, 128, dev)
+    got = ssd_scan(*ins, chunk=256)
+    want = ssd_chunked(*ins, 256)[0]
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+
+
 def test_ssd_scan_reads_strided_views(dev):
     """x, b and c as the model hands them over: slices of one conv output,
     and dt a transposed view; the result is the contiguous inputs'."""
@@ -214,7 +231,7 @@ def test_ssd_scan_reads_strided_views(dev):
 
 def test_ssd_scan_rows_do_not_depend_on_the_batch(dev):
     """A batch row's output is the same alone or inside a larger batch:
-    one block per (batch, head), nothing shared across batch rows."""
+    no pass of the scan reads across batch rows."""
     from repro_torch.kernels.ssd_scan import ssd_scan
     ins = _ssd_inputs(np.random.default_rng(4), 3, 256, 4, 64, 128, dev)
     full = ssd_scan(*ins, chunk=128)

@@ -110,3 +110,40 @@ def test_matmul_plan_reads_n_and_k_only(n, k, splits):
     assert mm.tile_for(n, k) == splits
     assert splits in mm.SPLITS and (splits == 1
                                     or k >= splits * mm.SPLIT_MIN_K)
+
+
+# tests/test_kernels.py's SSD sweep, its chunked-form case and a length
+# whose chunk halves (96 % 64 -> 32)
+SSD_SHAPES = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
+              (1, 256, 4, 8, 4, 16), (2, 96, 2, 16, 8, 32),
+              (1, 96, 2, 16, 8, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_passes_match_jax_chunked_pallas_and_reference(b, s, h, p, n,
+                                                           chunk):
+    """The CUDA scan's decomposition (chunk states, state passing, chunk
+    outputs), stated in plain PyTorch, against the JAX package: its chunked
+    form (y and final state; f32 summation order only, atol 1e-4 as the
+    port's ssd_chunked is held to it, on |y| up to about 50), the Pallas
+    kernel in interpret mode and the sequential reference (the tolerance of
+    tests/test_kernels.py, chunked against sequential sums)."""
+    from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
+    from repro.models.ssm import ssd_chunked as jax_chunked
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(s * 3 + h)
+    ins = (_normal(rng, (b, s, h, p)),
+           np.log1p(np.exp(_normal(rng, (b, s, h)))).astype(np.float32),
+           -np.exp(_normal(rng, (h,)) * 0.5).astype(np.float32),
+           _normal(rng, (b, s, n)), _normal(rng, (b, s, n)),
+           _normal(rng, (h,)))
+    y, state = ssd.passes(*map(torch.from_numpy, ins), chunk=chunk)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, h, p)
+    assert tuple(state.shape) == (b, h, n, p)
+    jy, jstate = jax_chunked(*map(jnp.asarray, ins), chunk)
+    np.testing.assert_allclose(_f32(y), _f32(jy), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(_f32(state), _f32(jstate), atol=1e-4, rtol=0)
+    pallas = pallas_ssd(*map(jnp.asarray, ins), chunk=chunk, interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(pallas), atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(_f32(y), _f32(jax_ref.ssd_ref(
+        *map(jnp.asarray, ins))), atol=2e-3, rtol=1e-3)
