@@ -10,6 +10,13 @@ executors, then drives each path through the port's own entry points:
   (full width, full depth, seq 1024, random weights from a seed) under a
   2048 MiB weight pool, and a short online replay (``streamed_matmul``,
   ``flash_attention``);
+* the fleet: the same two models behind the Router on two replicas, each
+  with its own 2048 MiB pool on the one card, once through
+  ``repro_torch.launch.serve --replicas 2`` and once over a flash-crowd
+  trace (``serving.traces``) with replica 1 killed partway: one terminal
+  response per request, outputs against a plain forward, each pool within
+  its budget, the killed replica's breaker open and its requests retried
+  or failed;
 * the model path: Mamba-2-130M (full width, all 24 layers, random weights
   from a seed) through ``models.model.make_step_bundle``, three prefill
   requests at batch 4 x 4096 tokens (``ssd_scan`` in every layer), one
@@ -19,7 +26,9 @@ executors, then drives each path through the port's own entry points:
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
 
-The launch counts are set to 0 just before each path and read just after.
+The launch counts are set to 0 just before each path and read just after;
+on the serving and fleet paths they must equal the graphs' counts over
+the batches each engine executed, plus each engine's calibration.
 Any failed check raises and the script exits non-zero without its last
 line. It imports nothing of JAX or of the JAX package, needs one card, and
 exits non-zero without one.
@@ -35,6 +44,9 @@ device's work on the one before, the median of 5 rounds.
 call; phase 3d holds each pass against its plain statement
 (``kernels.ssd_scan.chunk_states``, ``state_passing``, ``chunk_outputs``)
 and prints its device time by profiler kernel name against its own bound.
+
+Phase 8 also times ``layout_pack``'s library counterpart, the same copy
+as one PyTorch call (``view``, ``permute``, ``contiguous``).
 
 Phase 5c serves the same requests once more with the planner's f32 rate
 pinned to what the previous version of the matmul kernel calibrated to,
@@ -81,6 +93,17 @@ ROUNDS = 5          # rounds of back-to-back calls per device-time median
 # register-staged version of the matmul kernel: 0.3459 ms a call at
 # CALIBRATION_SHAPE (1024 x 2048 x 2048) on an H100 80GB HBM3 at 700 W
 PREVIOUS_PEAK_FLOPS = 2 * 1024 * 2048 * 2048 / 0.3459e-3
+# the fleet phase: two replicas on the one card, each with its own
+# BUDGET_MB pool. Run 1 (the CLI): a Poisson trace of 7 requests (seed 0
+# at seq 1024: 4 for GPT-Neo-1.3B, 3 for GPT-Neo-S). Run 2: 10 requests of
+# a flash crowd on GPT-Neo-S (seed 0: 4 for GPT-Neo-1.3B, 6 for GPT-Neo-S),
+# replica 1, the hash ring's home of both models, killed in the crowd. The
+# timeout is well above a cold 1.3B request (up to 1.68 s on the card), so
+# no retry comes from a slow load.
+FLEET_RATE, FLEET_DURATION, FLEET_TIMEOUT_S = 1.4, 4.0, 10.0
+CROWD_BASE_RATE, CROWD_DURATION = 0.8, 6.0
+CROWD_START, CROWD_SPAN, CROWD_FACTOR = 1.5, 2.0, 8.0
+FLEET_VICTIM, FLEET_KILL_S = 1, 3.0
 MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_SEQ, MAMBA_REQUESTS = 4, 4096, 3
 DECODE_STEPS = 32
@@ -414,6 +437,7 @@ def main() -> int:
     from repro_torch.kernels.streamed_matmul import streamed_matmul, tile_for
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.stream import stamp_req_ids
     from repro_torch.models import model
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.ssm import ssd_chunked
@@ -528,8 +552,11 @@ def main() -> int:
         f"{ {m: dict(by_kernel(c)) for m, c in per_request.items()} }")
     measured = {}                       # (kernel, shape key) -> numbers
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for shape in sorted({s for c in per_request.values() for s in c}
-                        | {("streamed_matmul", CALIBRATION_SHAPE)}):
+
+    def measure(shape):
+        """Check one serving-path shape against the plain version and
+        time it, the plain version and the library call into
+        ``measured``."""
         kn, key = shape
         if kn == "streamed_matmul":
             m, k, n = key
@@ -588,7 +615,10 @@ def main() -> int:
             f"bound {bms:.4f} ms ({bby}), max abs err {err:.2e}; {plan}"
             f"{regs[0]} registers, {regs[1]} B spill stores, {regs[2]} B "
             f"spill loads; the library ran {lib_kernels}")
-    del a, b, q, k, v, qt, kt, vt, got
+
+    for shape in sorted({s for c in per_request.values() for s in c}
+                        | {("streamed_matmul", CALIBRATION_SHAPE)}):
+        measure(shape)
 
     # (c) ssd_scan against the sequential recurrence on the JAX kernel
     # tests' sweep (tests/test_kernels.py:56-91) plus a length whose chunk
@@ -918,6 +948,188 @@ def main() -> int:
         f"launches {on_launches}")
     del on_resp, on_engine
 
+    # ---- 6b. the fleet: two replicas behind the Router on one card -------
+    plain_models = {}
+
+    def check_fleet(tag, router, responses, trace, wall, wall_what, shapes,
+                    warmed):
+        """One terminal response per request; every served output within
+        1e-3 of a plain-version forward on the card; every replica's pool
+        within its budget; the kernels' launches by shape equal to the
+        graphs' (each engine's calibration, ``warmed`` forwards, and every
+        batch each replica executed). Logs the run; returns the max abs
+        error against the plain forwards."""
+        models = router.replicas[0].engine.models
+        check(sorted(r.req_id for r in responses)
+              == sorted(t.req_id for t in trace),
+              f"{tag}: {len(responses)} terminal responses for "
+              f"{len(trace)} requests")
+        check(all(r.status in ("ok", "rejected", "failed")
+                  for r in responses), f"{tag}: unknown statuses")
+        served = [r for r in responses if r.status == "ok"]
+        check(served, f"{tag}: nothing served")
+        tokens = {t.req_id: t.tokens for t in trace}
+        err = 0.0
+        for r in served:
+            m = models[r.model]
+            if r.model not in plain_models:
+                plain_models[r.model] = replace(m, programs=_build_programs(
+                    m.cfg, matmul=ref.matmul_ref,
+                    attention=ref.flash_attention_ref))
+            want = PreloadExecutor(plain_models[r.model]).run(
+                tokens[r.req_id]).result
+            check(tuple(r.result.shape) == (1, SEQ, m.cfg.d_model)
+                  and bool(torch.isfinite(r.result).all()),
+                  f"{tag}: {r.model} result {tuple(r.result.shape)} not "
+                  f"finite")
+            err = max(err, close(r.result, want, 1e-3, 0.0,
+                                 f"{tag} req {r.req_id} vs plain forward"))
+        expected = Counter({("streamed_matmul", CALIBRATION_SHAPE):
+                            CALIBRATION_LAUNCHES * len(router.replicas)})
+        for m, c in warmed.items():
+            for shape, n in per_request[m].items():
+                expected[shape] += n * c
+        batches = Counter()
+        for rep in router.replicas:
+            check(rep.engine.peak_memory() <= BUDGET_MB << 20,
+                  f"{tag}: replica {rep.rid} pool peak "
+                  f"{rep.engine.peak_memory()} > {BUDGET_MB} MiB")
+            check(rep.engine.cache.ledger_balanced(),
+                  f"{tag}: replica {rep.rid} pool ledger unbalanced")
+            for _, name, size in rep.engine.batch_log:
+                batches[(name, size)] += 1
+        for (name, size), c in batches.items():
+            for shape, n in path_shapes(models[name].cfg, SEQ,
+                                        batch=size).items():
+                expected[shape] += n * c
+        check(shapes == expected,
+              f"{tag}: launch counts by shape differ from the graphs: "
+              f"counted {sorted(shapes.items())}, expected "
+              f"{sorted(expected.items())}")
+        rep_ = router.report(responses)
+        routes = Counter((e[2], e[3]) for e in router.route_log)
+        log(f"[{tag}] FLEET {len(router.replicas)} replicas routing="
+            f"{router.routing} served {rep_['served']}/{rep_['requests']} "
+            f"failed={rep_['failed']} retries={rep_['retries']} "
+            f"dup_suppressed={rep_['dup_suppressed']} restream_mb="
+            f"{rep_['restream_bytes'] / 1e6:.1f}; {wall_what} {wall:.3f}s, "
+            f"{wall / len(trace):.4f}s per request, charged "
+            f"{sum(r.charged_s for r in served):.4f}s in all; launches "
+            f"{dict(by_kernel(shapes))} = the graphs' over batches "
+            f"{dict(sorted(batches.items()))}, {len(router.replicas)} "
+            f"calibrations and warm-ups {dict(warmed)}")
+        log(f"[{tag}] routes (model, replica): {dict(sorted(routes.items()))}"
+            f"; reasons {dict(Counter(e[4] for e in router.route_log))}")
+        for rep in router.replicas:
+            br = router.breakers[rep.rid]
+            log(f"[{tag}] replica {rep.rid} on {rep.device}: batches "
+                f"{rep.batch_feed.total}, pool peak "
+                f"{rep.engine.peak_memory() / 1e6:.1f} MB of "
+                f"{(BUDGET_MB << 20) / 1e6:.1f} MB, hit rate "
+                f"{rep.engine.cache_hit_rate():.3f}, restream "
+                f"{rep.restream_bytes() / 1e6:.1f} MB, breaker {br.state} "
+                f"after {[(round(t, 4), a, b, why) for t, a, b, why in br.transitions]}")
+        for r in sorted(responses, key=lambda r: r.req_id):
+            log(f"[{tag}] req {r.req_id} {r.model} {r.status}: arrival "
+                f"{r.arrival_s:.3f}s latency {r.latency_s:.4f}s charged "
+                f"{r.charged_s:.4f}s batch {r.batch_size}")
+        log(f"[{tag}] every request has one terminal response, served "
+            f"outputs within atol 1e-3 of a plain forward (max abs err "
+            f"{err:.2e}), every pool within {BUDGET_MB} MiB; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+        return err
+
+    # both models at full width, each replica with its own BUDGET_MB pool;
+    # run 1 through the CLI, run 2 with Replicas and a Router built here
+    # over a flash-crowd trace, replica 1 killed partway
+    fleet_argv = ["--device", "cuda", "--models", ",".join(SERVE_MODELS),
+                  "--online", "--replicas", "2", "--routing", "affinity",
+                  "--budget-mb", str(BUDGET_MB), "--rate", str(FLEET_RATE),
+                  "--duration", str(FLEET_DURATION), "--seq", str(SEQ),
+                  "--timeout-ms", str(FLEET_TIMEOUT_S * 1e3),
+                  "--disk-gbps", "0"]
+    log(f"[fleet] python -m repro_torch.launch.serve {' '.join(fleet_argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet_resp, fleet_router = serve.main(fleet_argv)
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    fleet_shapes = Counter({(kn, key): c for kn, by_shape in
+                            ops.launch_counts_by_shape().items()
+                            for key, c in by_shape.items()})
+    fleet_models = fleet_router.replicas[0].engine.models
+    trace = serve.online_trace(fleet_models, FLEET_RATE, FLEET_DURATION, SEQ)
+    # the CLI warms each model with one forward before the trace
+    fleet_err = check_fleet(
+        "fleet", fleet_router, fleet_resp, trace, fleet_wall,
+        "wall of the CLI (both models built, two engines calibrated, each "
+        "model warmed, the replay)", fleet_shapes,
+        Counter(m.split("#")[0] for m in fleet_models))
+
+    # run 2: the same models (built once, registered with every replica),
+    # a crowd on GPT-Neo-S, replica 1 (the ring's home of both models)
+    # killed partway
+    from repro_torch.serving.replica import FaultPlan, Replica
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.traces import flash_crowd_trace
+    crowd = next(n for n in fleet_models if n.startswith("gptneo-s"))
+    trace = stamp_req_ids(flash_crowd_trace(
+        {n: CROWD_BASE_RATE for n in fleet_models}, CROWD_DURATION,
+        crowd_model=crowd, start_s=CROWD_START, span_s=CROWD_SPAN,
+        factor=CROWD_FACTOR, vocab=min(m.cfg.vocab for m in
+                                       fleet_models.values()),
+        seq=SEQ, seed=0))
+    del fleet_resp, fleet_router
+    # counted from here: each engine's calibration is on the path, as in
+    # the CLI run
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fleet = []
+    for rid in range(2):
+        rep = Replica(rid, device=dev, budget_bytes=BUDGET_MB << 20,
+                      disk_bw=0.0)
+        for nm, m in fleet_models.items():
+            rep.register(nm, m)
+        fleet.append(rep.start())
+    router = Router(fleet, routing="affinity", timeout_s=FLEET_TIMEOUT_S)
+    log(f"[fleet-fault] {len(trace)} requests of a flash crowd on {crowd} "
+        f"(x{CROWD_FACTOR} from {CROWD_START}s for {CROWD_SPAN}s over "
+        f"{CROWD_BASE_RATE} req/s per model for {CROWD_DURATION}s); replica "
+        f"{FLEET_VICTIM} killed at {FLEET_KILL_S}s; timeout "
+        f"{FLEET_TIMEOUT_S}s")
+    t0 = time.perf_counter()
+    crowd_resp = router.serve(trace, fault_plan=FaultPlan().kill(
+        FLEET_KILL_S, rid=FLEET_VICTIM))
+    torch.cuda.synchronize()
+    crowd_wall = time.perf_counter() - t0
+    crowd_shapes = Counter({(kn, key): c for kn, by_shape in
+                            ops.launch_counts_by_shape().items()
+                            for key, c in by_shape.items()})
+    fleet_err = max(fleet_err, check_fleet(
+        "fleet-fault", router, crowd_resp, trace, crowd_wall,
+        "wall of Router.serve", crowd_shapes, Counter()))
+    br = router.breakers[FLEET_VICTIM]
+    check(any(to == "open" for _, _, to, _ in br.transitions),
+          f"replica {FLEET_VICTIM}'s breaker never opened: {br.transitions}")
+    status = {r.req_id: r.status for r in crowd_resp}
+    attempts = Counter((e[1], e[5]) for e in router.route_log)
+    lost = [e for e in router.route_log
+            if e[3] == FLEET_VICTIM and e[0] >= FLEET_KILL_S
+            and (e[1], e[5] + 1) not in attempts
+            and status[e[1]] != "failed"]
+    check(not lost, f"requests routed to the dead replica neither retried "
+          f"nor failed: {lost}")
+    log(f"[fleet-fault] every request routed to replica {FLEET_VICTIM} at or "
+        f"after its death was routed again or failed; its breaker: "
+        f"{[(round(t, 4), a, b, why) for t, a, b, why in br.transitions]}")
+    fleet_shapes += crowd_shapes
+    del crowd_resp, router, fleet, fleet_models, trace
+    # the shapes batching made that the serving phase did not time
+    for shape in sorted(set(fleet_shapes) - set(measured), key=str):
+        measure(shape)
+
     # ---- 7. Mamba-2-130M through the model path ---------------------------
     arch = get_arch(MAMBA)
     env = make_host_mesh(device=dev)
@@ -1122,27 +1334,45 @@ def main() -> int:
         check(torch.equal(bits(got), bits(want)), f"pack {shape}")
         flops, nbytes = shape_work("layout_pack", shape[1])
         bms, bby = bound_ms(flops, nbytes, peaks)
+        # on shapes the tile divides, the same copy is one PyTorch call
+        library = None
+        if r % tr == 0 and c % tc == 0:
+            def library():
+                return w.view(r // tr, tr, c // tc, tc).permute(
+                    0, 2, 1, 3).contiguous()
+            check(torch.equal(bits(library()), bits(got)),
+                  f"pack {shape}: the permute differs from the kernel")
         measured[shape] = {
             "ms": call_ms(lambda: layout_pack(w)),
             "device_ms": device_ms(lambda: layout_pack(w)),
             "plain_ms": call_ms(lambda: ref.layout_pack_ref(w, (tr, tc))),
-            "library_ms": None, "bound_ms": bms, "bound_by": bby,
+            "library_ms": library and call_ms(library),
+            "library_device_ms": library and device_ms(library),
+            "bound_ms": bms, "bound_by": bby,
             "max_abs_err": (got.float() - want.float()).abs().max().item()}
         m_ = measured[shape]
+        lib_note = "no library call (the tile does not divide the shape)"
+        if library:
+            lib_note = (f"library (view, permute, contiguous) one call "
+                        f"{m_['library_ms']:.4f} ms, device time "
+                        f"{m_['library_device_ms']:.4f} ms, kernel "
+                        f"{m_['device_ms'] / m_['library_device_ms']:.3f}x "
+                        f"the library")
         log(f"[pack] {shape}: one call: kernel {m_['ms']:.4f} ms, plain "
             f"{m_['plain_ms']:.4f} ms; device time {m_['device_ms']:.4f} ms; "
             f"bound {bms:.4f} ms ({bby}, {nbytes / 1e6:.1f} MB), "
             f"{nbytes / m_['device_ms'] / 1e6:.0f} GB/s, "
-            f"bit-exact")
-        del w, got, want
+            f"bit-exact; {lib_note}")
+        del w, got, want, library
     log(f"[pack] ops.pack over {len(layer_w)} weights of a {SERVE_MODELS[0]} "
         f"layer in f32 and bf16: {sum(pack_shapes.values())} launches, each "
         f"bit-exact against layout_pack_ref and unpacked back exactly")
 
     # ---- 9. summary -------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
-    # Mamba-2 prefill requests (phase 7), the pack pass (phase 8)
-    path_counts = serve_shapes + mamba_shapes + pack_shapes
+    # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the pack
+    # pass (phase 8)
+    path_counts = serve_shapes + fleet_shapes + mamba_shapes + pack_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -1180,7 +1410,8 @@ def main() -> int:
         + f", device time {k['device_ms']:.4f} ms"
         + (f" = {k['device_ms'] / k['library_device_ms']:.3f}x the library"
            if k["library_device_ms"] else "") + ")" for k in kernels)
-        + f"; serving max abs err vs plain {serve_err:.2e}; Mamba-2 prefill "
+        + f"; serving max abs err vs plain {serve_err:.2e}; fleet "
+        f"{fleet_err:.2e}; Mamba-2 prefill "
         f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)

@@ -6,6 +6,7 @@ Pipeline:  graph -> capacities -> LC-OPG solve -> OverlapPlan ->
 from repro_torch.core.allocator import (AllocationResult, MixSpec, MixTracker,
                                         allocate_joint)
 from repro_torch.core.capacity import HWSpec, THRESHOLDS, capacities
+from repro_torch.core.fusion import adaptive_fusion_solve, fuse_graph
 from repro_torch.core.graph import ModelGraph, build_lm_graph
 from repro_torch.core.opg import OPGProblem, OPGSolution, check_constraints
 from repro_torch.core.plan import (MultiModelPlan, OverlapPlan,
@@ -18,7 +19,8 @@ from repro_torch.core.streaming import (HostModel, PreloadExecutor,
 
 __all__ = [
     "AllocationResult", "MixSpec", "MixTracker", "allocate_joint",
-    "HWSpec", "THRESHOLDS", "capacities", "ModelGraph", "build_lm_graph",
+    "HWSpec", "THRESHOLDS", "capacities", "adaptive_fusion_solve",
+    "fuse_graph", "ModelGraph", "build_lm_graph",
     "OPGProblem", "OPGSolution", "check_constraints", "MultiModelPlan",
     "OverlapPlan", "plan_always_next", "plan_multi_model", "plan_preload_all",
     "plan_same_op_type", "simulate", "SolverConfig", "solve",

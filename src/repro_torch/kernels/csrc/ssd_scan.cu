@@ -64,8 +64,20 @@
 //    exp(L_i - L_j) o dt_j is formed element by element in shared memory,
 //    one stage ahead and between the FMAs (the j > i terms are zero and
 //    never exponentiated). d x is added from the diagonal stages' X rows.
-//    The factoring needs L monotone within a chunk, which dt >= 0 (dt
-//    after softplus, as the model hands it over) gives.
+//
+//    The factoring is exact only where L is monotone within the chunk:
+//    dt a of one sign (the model's softplus dt and negative a give that).
+//    Then both exponents have one sign, each factor lies between 1 and
+//    the product, and neither overflows or flushes to zero where the
+//    product does not. Where dt a takes both signs they can, while every
+//    term of the reference stays finite: with L rising some 85 nats to r
+//    and falling back after it, the accumulator's sum over n and j of
+//    (C_i . B_j) exp(L_r - L_j) dt_j X_j overflows (the reference's
+//    state, a sum over j alone, does not), or exp(L_i - L_r) flushes to
+//    zero. So the block reads the signs of dt a of its 4 heads as it
+//    loads dt, and where they differ it forms M element by element for
+//    every step left of the diagonal too and scales C . S_in by exp(L_i)
+//    itself: the reference's own terms, at the cost of the exponentials.
 //
 // Copies are 16-byte cp.async where x's, b's and c's rows are 16-byte
 // aligned, 4-byte otherwise; the arithmetic is the same either way. No
@@ -499,12 +511,19 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
     lh[e] = h < H && i < Q ? args.lw[((long long)bi * H + h) * S + t0 + i]
                            : 0.f;
   }
+  // the signs of dt a this lane saw (O_THREADS is a multiple of HG, so a
+  // lane's elements all belong to one head)
+  bool rising = false, falling = false;
   for (int e = tid; e < HG * QMAX; e += O_THREADS) {
     const int hq = e % HG, i = e / HG, h = grp * HG + hq;
-    dth[hq * QMAX + i] =
-        h < H && i < Q
-            ? args.dt[bi * args.sdb + (t0 + i) * args.sds + h * args.sdh]
-            : 0.f;
+    const bool in = h < H && i < Q;
+    const float v =
+        in ? args.dt[bi * args.sdb + (t0 + i) * args.sds + h * args.sdh]
+           : 0.f;
+    dth[hq * QMAX + i] = v;
+    const float va = in ? v * args.a[h] : 0.f;
+    rising |= va > 0.f;
+    falling |= va < 0.f;
   }
 
   const int hq = tid >> 6, u = tid & 63;
@@ -521,11 +540,15 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
-  __syncthreads();  // C^T, L and dt are in place
+  // the first barrier also puts C^T, L and dt in place; L is monotone in
+  // the chunk for every head of the block unless dt a takes both signs
+  const int any_rising = __syncthreads_or(rising);
+  const int any_falling = __syncthreads_or(falling);
+  const bool factored = !(any_rising && any_falling);
   const float4 l4 = ld4(&lq[i0 + mc]);
   const float li[4] = {l4.x, l4.y, l4.z, l4.w};
-  const float l_r = i0 > 0 ? lq[i0 - 1] : 0.f;
-  if (i0 > 0) {
+  const float l_r = factored && i0 > 0 ? lq[i0 - 1] : 0.f;
+  if (factored && i0 > 0) {
     // left of the tile dt_j becomes f_j = exp(L_r - L_j) dt_j (below)
     for (int e = tid; e < HG * i0; e += O_THREADS) {
       const int eh = e / i0, j = e % i0;
@@ -535,16 +558,20 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
     __syncthreads();
   }
 
-  // The columns left of the tile (j < i0 <= i) factor through the last of
-  // them, r = i0 - 1: exp(L_i - L_j) = exp(L_i - L_r) exp(L_r - L_j), both
-  // exponents of one sign (L is monotone in a chunk: dt >= 0), so neither
-  // factor overflows where the product does not. Their A operand is then
-  // C B^T itself, shared by the 4 heads, and X's rows are scaled by
-  // f_j = exp(L_r - L_j) dt_j as they land. Only the diagonal tile's M is
-  // formed element by element, its j > i terms zero and never
-  // exponentiated. acc holds exp(L_r) C.S_in + sum_{j<=r} .. until it is
-  // scaled by exp(L_i - L_r).
-  auto diagonal = [&](int t) { return (t - n1) * KT >= i0; };
+  // Where factored, the columns left of the tile (j < i0 <= i) factor
+  // through the last of them, r = i0 - 1: exp(L_i - L_j) = exp(L_i - L_r)
+  // exp(L_r - L_j). L is then monotone in the chunk (dt a of one sign for
+  // every head of the block), so both exponents have one sign and neither
+  // factor overflows or flushes to zero where the product does not. Their
+  // A operand is C B^T itself, shared by the 4 heads, and X's rows are
+  // scaled by f_j = exp(L_r - L_j) dt_j as they land; acc holds
+  // exp(L_r) C.S_in + sum_{j<=r} .. until it is scaled by exp(L_i - L_r).
+  // Only the diagonal tile's M is formed element by element, its j > i
+  // terms zero and never exponentiated. Where dt a takes both signs a
+  // factor can overflow (or flush) while the product is finite, so M is
+  // formed element by element left of the tile as well, and C.S_in is
+  // scaled by exp(L_i) itself.
+  auto diagonal = [&](int t) { return !factored || (t - n1) * KT >= i0; };
 
   // One barrier a step. At step t, step t's B rows and step t+1's C B^T
   // rows have landed; a lane scales the X rows it copied for step t if
@@ -556,7 +583,7 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
   auto step = [&](int t, const float* asrc, int astr) {
     cp_async_wait<1>();
     const int jt = (t - n1) * KT, tn = t + 1, jn = (tn - n1) * KT;
-    if (t >= n1 && jt < i0) {
+    if (factored && t >= n1 && jt < i0) {
       float* bd = ring_b + (t % O_STAGES) * O_B;
 #pragma unroll
       for (int e = tid; e < O_B / VEC; e += O_THREADS) {
@@ -570,7 +597,7 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
     __syncthreads();
     load(t + 2);
     const float* bsrc = ring_b + (t % O_STAGES) * O_B + hq * KT * PMAX;
-    const bool form = tn >= n1 && tn < nsteps && jn >= i0;
+    const bool form = tn >= n1 && tn < nsteps && (jn >= i0 || !factored);
     const float* gsrc = ring_g + (tn % O_STAGES) * O_G;
     float* md = ms + (tn & 1) * O_M + hq * KT * TR;
 #pragma unroll 1
@@ -604,7 +631,7 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
 
   // acc = exp(L_r) C . S_in over the state's rows n ...
   for (int t = 0; t < n1; ++t) step(t, ct + t * KT * CT_STR, CT_STR);
-  if (i0 > 0) {
+  if (factored && i0 > 0) {
     const float f = __expf(l_r);
 #pragma unroll
     for (int r = 0; r < 8; ++r)
@@ -615,7 +642,8 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
   int t = n1;
   for (; t < nsteps && !diagonal(t); ++t)
     step(t, ring_g + (t % O_STAGES) * O_G, TR);
-  // ... all scaled by exp(L_i - L_r) ...
+  // ... all scaled by exp(L_i - L_r) (by exp(L_i) where not factored:
+  // then l_r = 0 and acc holds C . S_in alone) ...
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const float f =
@@ -623,11 +651,13 @@ __global__ void __launch_bounds__(O_THREADS, 1) chunk_out_kernel(Args args) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[r][q] *= f;
   }
-  // ... plus M X over the diagonal tile, and d x: the X rows of the tile's
-  // own rows are these steps' (where j > i, M adds exact zeros)
+  // ... plus M X over the diagonal tile (and, where not factored, the
+  // columns left of it), and d x: the X rows of the tile's own rows are
+  // the diagonal steps' (where j > i, M adds exact zeros)
   for (; t < nsteps; ++t) {
     const float* xs = step(t, ms + (t & 1) * O_M + hq * KT * TR, TR);
     const int j0 = (t - n1) * KT;
+    if (j0 < i0) continue;
     const int half = j0 == i0 ? 0 : 4;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {

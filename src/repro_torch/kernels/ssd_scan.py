@@ -183,9 +183,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Launch the kernel: x [B,S,H,P], dt [B,S,H], a/d_skip [H], b/c
     [B,S,N], all f32 on one CUDA device; P a multiple of 4 up to
     ``MAX_P``, N up to ``MAX_N``, the chunk (``chunk_len``) up to
-    ``MAX_Q``. dt is the step after softplus (dt >= 0, so L = cumsum(dt a)
-    is monotone within a chunk, which the output pass's factored decay
-    relies on). Returns y [B,S,H,P] f32, contiguous."""
+    ``MAX_Q``. dt may take either sign: where dt a does within a chunk
+    (L = cumsum(dt a) is not monotone there), the output pass forms the
+    decay exp(L_i - L_j) element by element instead of factoring it.
+    Returns y [B,S,H,P] f32, contiguous."""
     return _launch(x, dt, a, b, c, d_skip, chunk)[0]
 
 

@@ -54,8 +54,15 @@ rates) and re-plans the split in the background when it drifts:
         --models gptneo-s,gptneo-s --online --budget-mb 256 \
         --mix 8,1 --replan
 
-Fleet mode (``--replicas > 1``, the multi-replica tier behind the
-cache-affinity Router) is not ported yet and is refused.
+Fleet mode — replay the trace through a multi-replica tier behind the
+cache-affinity Router instead of one engine. Each replica gets its OWN
+pool budget (the fleet is a partitioned weight cache) on ``--device``;
+``--routing affinity`` keeps each model pinned to its consistent-hash
+home replica, ``--routing round_robin`` is the cache-oblivious control:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --models gptneo-s,gptneo-s --online --replicas 3 \
+        --routing affinity --budget-mb 128 --rate 8 --duration 2
 """
 from __future__ import annotations
 
@@ -185,11 +192,22 @@ def main(argv=None):
                     "driven activation-arena peak (core.arena) in the "
                     "shared pool for the duration of a batch")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="fleet mode (N > 1) is not ported yet")
+                    help="online: serve through a fleet of N replicas "
+                    "behind the cache-affinity Router (each replica gets "
+                    "its own --budget-mb pool)")
+    ap.add_argument("--routing", choices=["affinity", "round_robin"],
+                    default="affinity",
+                    help="fleet request routing: affinity = consistent-"
+                    "hash home replica with hot/cold spillover; "
+                    "round_robin = cache-oblivious control")
+    ap.add_argument("--timeout-ms", type=float, default=2000.0,
+                    help="fleet: per-attempt response timeout before the "
+                    "Router retries on a sibling (keep well above the "
+                    "real per-batch latency, or healthy replicas get "
+                    "treated as failed)")
     args = ap.parse_args(argv)
-    if args.replicas > 1:
-        ap.error("--replicas > 1 (fleet mode: serving/replica.py and "
-                 "serving/router.py) is not yet ported to repro_torch")
+    if args.replicas > 1 and not args.online:
+        ap.error("--replicas needs --online (the Router replays a trace)")
 
     names = args.models.split(",")
     mix = None
@@ -219,9 +237,11 @@ def main(argv=None):
             cfg = replace(cfg, num_layers=args.layers)
         models[f"{n}#{i}"] = HostModel.build(cfg, seq=args.seq, seed=i,
                                              device=args.device)
-    engine = ServingEngine(**engine_kw)
-    for nm, m in models.items():
-        engine.register(nm, m)
+    engine = None
+    if args.replicas <= 1:
+        engine = ServingEngine(**engine_kw)
+        for nm, m in models.items():
+            engine.register(nm, m)
 
     if args.online:
         # with --mix, offered traffic follows the declared mix so the
@@ -264,6 +284,40 @@ def main(argv=None):
             args, slo=slo, cost_model=cost_model,
             batcher=BatcherConfig(max_batch=args.max_batch,
                                   max_wait_s=args.max_wait_ms / 1e3))
+        if args.replicas > 1:
+            from repro_torch.serving.replica import Replica
+            from repro_torch.serving.router import Router
+            fleet = []
+            for rid in range(args.replicas):
+                rep = Replica(rid, **engine_kw)
+                for nm, m in models.items():
+                    rep.register(nm, m)
+                # each replica gets its own learned cost model instance
+                # (calibration state must not be shared across engines)
+                rep.start(config=cfg if cost_model is None else
+                          replace(cfg, cost_model=OnlineLatencyModel(
+                              min_samples=args.min_samples)))
+                fleet.append(rep)
+            router = Router(fleet, routing=args.routing,
+                            timeout_s=args.timeout_ms / 1e3)
+            responses = router.serve(trace, slo=slo)
+            for r in responses:
+                print(f"{r.model:14s} arrival {r.arrival_s:7.3f}s "
+                      f"queue {r.queue_s:6.3f}s "
+                      f"latency {r.latency_s:6.3f}s {r.status}")
+            frep = router.report(responses)
+            print(f"FLEET {args.replicas} replicas "
+                  f"routing={args.routing} "
+                  f"served {frep['served']}/{frep['requests']} "
+                  f"failed={frep['failed']} retries={frep['retries']} "
+                  f"miss_rate={frep['miss_rate']:.2f} "
+                  f"bad_rate={frep['bad_rate']:.2f} "
+                  f"restream_mb={frep['restream_bytes'] / 1e6:.1f}")
+            for rid, st in frep["per_replica"].items():
+                print(f"  r{rid}: batches={st['batches']} "
+                      f"restream_mb={st['restream_bytes'] / 1e6:.1f} "
+                      f"breaker={st['breaker']}")
+            return responses, router
         responses = engine.serve(RequestStream.from_trace(trace),
                                  clock=clock, config=cfg)
         for r in responses:

@@ -241,6 +241,108 @@ def test_ssd_scan_rows_do_not_depend_on_the_batch(dev):
     assert torch.equal(full[1:2], one)
 
 
+def _swing_inputs(dev, swing_heads=(1, 4)):
+    """Positive x, b and c at the model's chunk (256); in chunk 1 of batch
+    row 0, for ``swing_heads``, dt a takes both signs: L rises by 84 nats
+    over the chunk's first 64 steps and falls back over the next 16, so
+    the output pass's tile right of the apex would factor its decay
+    through exp(L_r - L_j) ~ e^83 (and C . S_in through exp(L_r) ~ e^84),
+    summed over n: past the f32 range. c is zero on the rows where L is
+    above 20, so the reference's rows there stay finite."""
+    rng = np.random.default_rng(16)
+    b, s, h, p, n, q = 2, 512, 6, 64, 128, 256
+    x = rng.uniform(0.5, 1.5, (b, s, h, p))
+    bb, cc = rng.uniform(1, 2, (b, s, n)), rng.uniform(1, 2, (b, s, n))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+    a = -np.exp(0.5 * rng.standard_normal(h))
+    d = rng.standard_normal(h)
+    swing = np.full(q, 0.05)
+    swing[:64], swing[64:80] = -84 / 64, 84 / 16
+    for hh in swing_heads:
+        a[hh] = -1.0
+        dt[0, q:, hh] = swing
+    cc[0, q:][np.cumsum(-swing) > 20] = 0.0
+    return tuple(torch.from_numpy(t.astype(np.float32)).to(dev)
+                 for t in (x, dt, a, bb, cc, d))
+
+
+def test_ssd_scan_with_a_non_monotone_decay(dev):
+    """dt a of both signs in a chunk (the reference takes any dt): held
+    against the recurrence where the recurrence is finite, at the
+    tolerance of test_ssd_scan_kernel. The rows right of the apex's tile
+    with c != 0 are among those compared: there a decay factored through
+    the tile's left column overflows."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ins = _swing_inputs(dev)
+    got = ssd_scan(*ins, chunk=256)
+    want = ref.ssd_ref(*ins)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert finite[0, 256 + 76:256 + 128, [1, 4]].all()
+    torch.testing.assert_close(got[finite], want[finite], atol=2e-3,
+                               rtol=1e-3)
+
+
+def test_ssd_scan_monotone_heads_are_unchanged_by_a_swinging_group(dev):
+    """Monotone chunks, falling (a < 0) and rising (a > 0, dt > 0), agree
+    with the recurrence; a head whose dt a swings changes nothing in the
+    output of the heads of another group of the output pass."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, a, bb, cc, d = _swing_inputs(dev, swing_heads=())
+    a[:2] = 0.02
+    calm = ssd_scan(x, dt, a, bb, cc, d, chunk=256)
+    torch.testing.assert_close(calm, ref.ssd_ref(x, dt, a, bb, cc, d),
+                               atol=2e-3, rtol=1e-3)
+    swung = _swing_inputs(dev, swing_heads=(4,))[1]
+    dt2 = dt.clone()
+    dt2[..., 4], a2 = swung[..., 4], a.clone()
+    a2[4] = -1.0
+    got = ssd_scan(x, dt2, a2, bb, cc, d, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :, :4], calm[:, :, :4])
+
+
+def test_fleet_of_two_replicas_on_one_card(dev):
+    """Two replicas on cuda:0, each with its own pool, behind the Router,
+    replica 1 killed partway: one terminal response per request, served
+    outputs equal to a solo forward on the card, pools within budget."""
+    from repro_torch.configs.gptneo import GPTNEO_S
+    from repro_torch.core.streaming import HostModel, PreloadExecutor
+    from repro_torch.serving.replica import FaultPlan, Replica, ReplicaClock
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.stream import poisson_trace
+    cfg = replace(GPTNEO_S, num_layers=2, d_model=128, n_heads=2,
+                  n_kv_heads=2, d_ff=256, vocab=256, name="tiny")
+    seq = 32
+    models = {nm: HostModel.build(replace(cfg, name=nm), seq=seq, seed=i,
+                                  device=dev) for i, nm in enumerate("ab")}
+    total = sum(sum(w.nbytes for w in m.host_weights.values())
+                for m in models.values())
+    budget = int(0.6 * total)
+    fleet = []
+    for rid in range(2):
+        rep = Replica(rid, clock=ReplicaClock(exec_time=0.05),
+                      device=dev, policy="stream", chunk_bytes=16 << 10,
+                      budget_bytes=budget, prefetch=False)
+        for nm, m in models.items():
+            rep.register(nm, m)
+        fleet.append(rep.start())
+    trace = poisson_trace({"a": 6.0, "b": 6.0}, 1.5, vocab=cfg.vocab,
+                          seq=seq, seed=3)
+    router = Router(fleet, timeout_s=0.2, cooldown_s=0.3)
+    responses = router.serve(trace, fault_plan=FaultPlan().kill(0.6, 1))
+    torch.cuda.synchronize()
+    assert sorted(r.req_id for r in responses) == list(range(len(trace)))
+    assert router.report(responses)["failed"] == 0
+    for r in responses:
+        want = PreloadExecutor(models[r.model]).run(
+            trace[r.req_id].tokens).result
+        torch.testing.assert_close(r.result, want, atol=1e-5, rtol=0)
+    for rep in fleet:
+        assert rep.engine.peak_memory() <= budget
+        assert rep.engine.cache.ledger_balanced()
+
+
 @pytest.mark.parametrize("r,c", PACK_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_layout_pack_kernel_bit_exact(dev, r, c, dtype):

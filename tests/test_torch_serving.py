@@ -238,6 +238,7 @@ def test_serve_cli_online_debatches_against_solo_runs():
 
 
 def test_serve_cli_refuses_fleet_mode():
+    """Fleet mode replays a trace: without --online it is refused, as the
+    reference CLI refuses it."""
     with pytest.raises(SystemExit):
-        serve.main(TINY + ["--models", "gptneo-s", "--online",
-                           "--replicas", "2"])
+        serve.main(TINY + ["--models", "gptneo-s", "--replicas", "2"])

@@ -36,14 +36,14 @@ OUT = ROOT / "build" / "ssd_ablation"
 
 # the pieces of chunk_out_kernel a build goes without
 LOADS = ("    load(t + 2);\n", "")
-SCALE = ("    if (t >= n1 && jt < i0) {", "    if (false) {")
-FORM = ("const bool form = tn >= n1 && tn < nsteps && jn >= i0;",
+SCALE = ("    if (factored && t >= n1 && jt < i0) {", "    if (false) {")
+FORM = ("const bool form = tn >= n1 && tn < nsteps && (jn >= i0 || !factored);",
         "const bool form = false;")
 PROLOGUE = [
     ("lh[e] = h < H && i < Q ? args.lw[((long long)bi * H + h) * S + t0 + i]"
      "\n                           : 0.f;", "lh[e] = -0.01f * i;"),
-    ("        h < H && i < Q\n            ? args.dt[bi * args.sdb + (t0 + i) "
-     "* args.sds + h * args.sdh]\n            : 0.f;", "0.5f;"),
+    ("\n        in ? args.dt[bi * args.sdb + (t0 + i) * args.sds + h * "
+     "args.sdh]\n           : 0.f;", " 0.5f;"),
     ("          const float4 f = *reinterpret_cast<const float4*>(src);",
      "          const float4 f = make_float4(n, r, 1.f, 2.f);")]
 CUTS = {"as it is": [],
@@ -61,26 +61,26 @@ def cut(src: str, pieces) -> str:
     return src
 
 
-def build() -> dict:
-    """{name: shared library path}, one nvcc per build, in parallel."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "ssd_scan.cu").read_text()
+def build(sources: dict, out: Path = OUT) -> dict:
+    """{name: shared library path} of {name: CUDA source text}, one nvcc
+    per build, in parallel, into ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, pieces) in enumerate(CUTS.items()):
-        cu, lib = OUT / f"v{i}.cu", OUT / f"v{i}.so"
-        cu.write_text(cut(src, pieces))
+    for i, (name, text) in enumerate(sources.items()):
+        cu, lib = out / f"v{i}.cu", out / f"v{i}.so"
+        cu.write_text(text)
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    out = {}
+    libs = {}
     for name, (lib, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
         regs = re.findall(r"Used (\d+) registers", log)
         print(f"[build] {name}: registers per entry {regs}", flush=True)
-        out[name] = lib
-    return out
+        libs[name] = lib
+    return libs
 
 
 def load(path: Path):
@@ -92,16 +92,9 @@ def load(path: Path):
     return lib
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("ssd_scan_ablation: needs an NVIDIA card", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"[device] {smi}", flush=True)
-    libs = build()
-    dev = torch.device("cuda:0")
+def inputs(dev):
+    """The Mamba-2-130M prefill shape's operands as the model hands them
+    over (seed 0), and ``models.ssm.ssd_chunked``'s y on them."""
     gen = torch.Generator().manual_seed(0)
     b, s, h, p, n = SHAPE
     xbc = torch.randn(b, s, h * p + 2 * n, generator=gen).to(dev)
@@ -110,30 +103,52 @@ def main() -> int:
            .to(dev), -torch.exp(0.5 * torch.randn(h, generator=gen)).to(dev),
            xbc[..., h * p:h * p + n], xbc[..., h * p + n:],
            torch.randn(h, generator=gen).to(dev))
-    want = ssd_chunked(*ins, CHUNK)[0]
+    return ins, ssd_chunked(*ins, CHUNK)[0]
+
+
+def time_build(path: Path, ins, want=None) -> dict:
+    """Device ms per call of each CUDA kernel of ``ssd_scan`` built into
+    ``path``, by profiler name (3 untimed calls, then ``CALLS``); with
+    ``want``, first holds y against it within 1e-4 of its scale."""
+    lib = load(path)
+    ssd._lib = lambda lib=lib: lib
+    got = ssd.ssd_scan(*ins, chunk=CHUNK)
+    torch.cuda.synchronize()
+    if want is not None:
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"ssd_scan vs ssd_chunked: {err}")
+    for _ in range(3):
+        ssd.ssd_scan(*ins, chunk=CHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            ssd.ssd_scan(*ins, chunk=CHUNK)
+        torch.cuda.synchronize()
+    return {re.sub(r"\(anonymous namespace\)::|void |\(.*|<.*", "",
+                   ev.key): round(ev.self_device_time_total / CALLS / 1e3, 4)
+            for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total", 0) > 0}
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ssd_scan_ablation: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(f"[device] {smi()}", flush=True)
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    libs = build({name: cut(src, pieces) for name, pieces in CUTS.items()})
+    ins, want = inputs(torch.device("cuda:0"))
     for rnd in range(2):
         for name, path in libs.items():
-            lib = load(path)
-            ssd._lib = lambda lib=lib: lib
-            got = ssd.ssd_scan(*ins, chunk=CHUNK)
-            torch.cuda.synchronize()
-            if name == "as it is":
-                err = (got - want).abs().max().item()
-                tol = 1e-4 * want.abs().max().item()
-                if not err <= tol:
-                    raise AssertionError(f"ssd_scan vs ssd_chunked: {err}")
-            for _ in range(3):
-                ssd.ssd_scan(*ins, chunk=CHUNK)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(CALLS):
-                    ssd.ssd_scan(*ins, chunk=CHUNK)
-                torch.cuda.synchronize()
-            per = {re.sub(r"\(anonymous namespace\)::|void |\(.*|<.*", "",
-                          ev.key): round(ev.self_device_time_total / CALLS
-                                         / 1e3, 4)
-                   for ev in prof.key_averages()
-                   if getattr(ev, "self_device_time_total", 0) > 0}
+            per = time_build(path, ins, want if name == "as it is" else None)
             print(f"[round {rnd}] {name}: device ms per call {per}",
                   flush=True)
     return 0
