@@ -23,6 +23,14 @@ executors, then drives each path through the port's own entry points:
   more under the profiler (device time of ``ssd_scan``, of the matmuls and
   of the rest by kernel name, and the compute stream's idle share), greedy
   decode, and decode against prefill;
+* the dense model path: Yi-6B (full width, all 32 layers, bf16, random
+  weights drawn on the card from a seed) through the same entry points:
+  prefill through the kernel against prefill through its plain version
+  and decode from the zero cache against prefill (2 x 256), three prefill
+  requests of 2 x 4096 tokens (a bf16 ``flash_attention`` in every layer),
+  one more under the profiler, the kernel at that shape against its plain
+  version, both bounds and bf16 SDPA, and decode at batch 8 over a
+  4096-slot KV cache;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
 
@@ -38,7 +46,10 @@ call between two CUDA events on an idle stream, the wrapper's host
 dispatch included, the median of 20 calls. ``device_ms`` (and the library
 call's ``library_device_ms``) is device time per call: CUDA events around
 20 back-to-back calls, so the host's dispatch of a call overlaps the
-device's work on the one before, the median of 5 rounds.
+device's work on the one before, the median of 5 rounds. ``bound_ms``
+takes a launch's operations at the peak of their type: f32 on the FMA
+units, bf16 on the tensor cores; a bf16 attention row also carries
+``fma_bound_ms``, the bound of the FMA units the kernel computes on.
 
 ``ssd_scan`` runs as three passes in four CUDA launches, counted as one
 call; phase 3d holds each pass against its plain statement
@@ -79,10 +90,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # published dense peaks of each H100 part (NVIDIA's data sheets), first
 # match on the card's name wins: f32 FLOP/s outside the tensor cores,
-# device-memory bytes/s, and the power limit in W the rates assume
-H100_PEAKS = (("H100 NVL", 60e12, 3.9e12, 400.0),
-              ("H100 PCIe", 51e12, 2.0e12, 350.0),
-              ("H100 80GB HBM3", 67e12, 3.35e12, 700.0))
+# device-memory bytes/s, bf16 FLOP/s on the tensor cores (dense, without
+# sparsity), and the power limit in W the rates assume
+H100_PEAKS = (("H100 NVL", 60e12, 3.9e12, 835e12, 400.0),
+              ("H100 PCIe", 51e12, 2.0e12, 756e12, 350.0),
+              ("H100 80GB HBM3", 67e12, 3.35e12, 989e12, 700.0))
 SERVE_MODELS = ("gptneo-1.3b", "gptneo-s")
 SEQ = 1024
 REQUESTS = 4
@@ -108,6 +120,25 @@ MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_SEQ, MAMBA_REQUESTS = 4, 4096, 3
 DECODE_STEPS = 32
 CONSIST_BATCH, CONSIST_SEQ = 2, 256
+DENSE = "yi-6b"
+DENSE_BATCH, DENSE_SEQ, DENSE_REQUESTS = 2, 4096, 3
+DENSE_DECODE_BATCH, DENSE_DECODE_STEPS = 8, 16
+# Yi-6B logits (up to about 5 with these random weights) of two runs that
+# differ in attention's f32 summation order (the kernel's online softmax
+# over 32-key tiles vs the plain version's one softmax), or of decode step
+# by step (softmax weights rounded to bf16 before PV) vs prefill: the bf16
+# residual stream of 32 layers carries one-ulp differences on. A CPU
+# emulation of both at full depth (widths 1024 and 2048, seeds 0-1, the
+# kernel's order written out in PyTorch) read 0.074-0.078 max abs and
+# 1.6-1.7% relative L2 for the order, 0.090-0.104 and 1.9-2.1% for decode;
+# the checks allow about twice that
+DENSE_LOGIT_ATOL = 0.2
+DENSE_LOGIT_REL_L2 = 0.05
+# a bf16 flash_attention output against its plain version: both round an
+# f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
+# above a floor for outputs near zero; the rounding alone gives a relative
+# L2 error near 2^-9, and a 1% limit catches a missing key tile
+BF16_ATTN_ATOL, BF16_ATTN_RTOL, BF16_ATTN_REL_L2 = 1e-3, 2 ** -7, 1e-2
 # the CUDA kernels of one ssd_scan call, by profiler name: its pass and
 # the ptxas entry of the build that runs with 16-byte aligned rows
 SSD_PASSES = {"chunk_state_kernel": ("1 chunk states", "ILi4E"),
@@ -214,34 +245,40 @@ def nvidia_smi() -> str:
 
 
 def card_peaks(smi: str):
-    """(f32 FLOP/s, device-memory bytes/s) of the card ``nvidia-smi`` names
-    (its "name, power.limit" line): its part's published peaks, the FLOP
-    rate scaled by power.limit over the part's rated limit when the card is
-    set below it (the SM clock falls with the limit, the memory clock does
-    not). Raises on a part without published peaks here."""
+    """(f32 FLOP/s, device-memory bytes/s, bf16 tensor-core FLOP/s) of the
+    card ``nvidia-smi`` names (its "name, power.limit" line): its part's
+    published peaks, the FLOP rates scaled by power.limit over the part's
+    rated limit when the card is set below it (the SM clock falls with the
+    limit, the memory clock does not). Raises on a part without published
+    peaks here."""
     name, limit = (f.strip() for f in smi.rsplit(",", 1))
     watts = float(limit.split()[0])
-    for part, flops, mem_bw, rated_w in H100_PEAKS:
+    for part, flops, mem_bw, bf16_flops, rated_w in H100_PEAKS:
         if part in name:
-            return flops * min(1.0, watts / rated_w), mem_bw
+            scale = min(1.0, watts / rated_w)
+            return flops * scale, mem_bw, bf16_flops * scale
     raise ValueError(f"no published peaks for the card {name!r}")
 
 
-def bound_ms(flops: float, nbytes: float, peaks):
-    """The least time the card could take: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+def bound_ms(flops: float, nbytes: float, peaks, dtype=torch.float32):
+    """The least time the card could take: (ms, what bounds it). The
+    operations run at the peak of their type: f32 on the FMA units, bf16
+    on the tensor cores."""
+    rate = peaks[2] if dtype == torch.bfloat16 else peaks[0]
+    t_ops, t_bytes = flops / rate, nbytes / peaks[1]
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def shape_work(kernel: str, key):
     """(FLOPs, bytes) one launch at the wrapper's shape ``key`` needs: each
-    input read once, the output written once. Matmul and attention in f32;
-    causal attention counts the s(s+1)/2 visible (q, k) pairs per head, 2 hd
-    FLOPs each for QK^T and for PV. The SSD scan (f32) counts, per chunk of
-    Q, the Q(Q+1)/2 causal pairs once for C B^T (shared by the heads, 2N
-    each) and per head for the product with X (2P each), plus C . state and
-    the state update (2QNP each per head). Packing moves bytes only: R x C
+    input read once, the output written once. Matmul in f32; attention in
+    its key's dtype (4 or 2 B an element); causal attention counts the
+    s(s+1)/2 visible (q, k) pairs per head, 2 hd FLOPs each for QK^T and for
+    PV. The SSD scan (f32) counts, per chunk of Q, the Q(Q+1)/2 causal
+    pairs once for C B^T (shared by the heads, 2N each) and per head for
+    the product with X (2P each), plus C . state and the state update
+    (2QNP each per head). Packing moves bytes only: R x C
     read, the padded output written."""
     if kernel == "streamed_matmul":
         m, k, n = key
@@ -257,10 +294,11 @@ def shape_work(kernel: str, key):
         r, c, tr, tc, dtype = key
         padded = -(-r // tr) * tr * (-(-c // tc) * tc)
         return 0.0, float(dtype.itemsize) * (r * c + padded)
-    b, sq, sk, hq, hkv, hd, causal, window = key
+    b, sq, sk, hq, hkv, hd, causal, window, dtype = key
     check(sq == sk and window == 0, f"attention work at {key}")
     pairs = sq * (sq + 1) / 2 if causal else sq * sk
-    return 4.0 * hd * pairs * hq * b, 4.0 * b * hd * (2 * sq * hq + 2 * sk * hkv)
+    return 4.0 * hd * pairs * hq * b, float(dtype.itemsize) * b * hd * (
+        2 * sq * hq + 2 * sk * hkv)
 
 
 def ssd_pass_work(key) -> dict:
@@ -330,7 +368,7 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
     """The kernel launches one request of ``cfg`` makes, from the planning
     graph the executors run, keyed as the wrappers count them:
     ("streamed_matmul", (M, K, N)) per projection and ("flash_attention",
-    (B, S, S, Hq, Hkv, hd, True, 0)) per attention."""
+    (B, S, S, Hq, Hkv, hd, True, 0, f32)) per attention."""
     from repro_torch.core.graph import build_lm_graph
     wshape = weight_shapes(cfg)
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -341,7 +379,7 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
                  (batch * seq, *wshape[op.name.split(".")[-1]]))] += 1
         elif op.kind == "attention":
             out[("flash_attention",
-                 (batch, seq, seq, nq, nkv, hd, True, 0))] += 1
+                 (batch, seq, seq, nq, nkv, hd, True, 0, torch.float32))] += 1
     return out
 
 
@@ -454,8 +492,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {name} count={count} ({smi}) torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; bound from {peaks[0]:.4g} FLOP/s f32 "
-        f"and {peaks[1]:.4g} B/s")
+        f"cuda {torch.version.cuda}; bound from {peaks[0]:.4g} FLOP/s f32, "
+        f"{peaks[2]:.4g} FLOP/s bf16 on the tensor cores and {peaks[1]:.4g} "
+        f"B/s")
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -485,6 +524,28 @@ def main() -> int:
               f"beyond atol={atol} rtol={rtol}")
         return err
 
+    def close_bf16_attention(got, want, what) -> tuple:
+        """A bf16 attention output against its plain version. Both compute
+        in f32 and round to bf16, so an element may land one bf16 ulp
+        apart: |got - want| <= BF16_ATTN_ATOL + 2^-7 |want| (the form of
+        tests/test_torch_attention.py's ULP_TOL), and the earlier 2e-2
+        max-abs limit beside it. The whole output is held to
+        BF16_ATTN_REL_L2 relative L2, which a dropped key tile in the late
+        rows (outputs near 0.02 at S = 4096) would break. Returns (max abs
+        error, relative L2 error, the largest error over its one-ulp
+        limit)."""
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        err = close(got, want, 2e-2, 0.0, what)
+        ulp = (diff / (BF16_ATTN_ATOL + BF16_ATTN_RTOL * w.abs())).max()
+        rel = ((g - w).norm() / w.norm()).item()
+        check(ulp.item() <= 1.0, f"{what}: an element {ulp.item():.3f}x its "
+              f"limit atol {BF16_ATTN_ATOL} + rtol 2^-7 |plain| (max abs "
+              f"err {err:.3e})")
+        check(rel <= BF16_ATTN_REL_L2, f"{what}: relative L2 error "
+              f"{rel:.3e} beyond {BF16_ATTN_REL_L2}")
+        return err, rel, ulp.item()
+
     # (a) the JAX kernel tests' sweeps (tests/test_kernels.py:13-55), plus
     # ragged shapes (K split into ranges that are not whole K tiles, rows
     # not 16-byte aligned, ragged key tiles at every head dim); B is scaled
@@ -502,19 +563,25 @@ def main() -> int:
     sweep_fa = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
                 (2, 64, 64, 2, 1, 16), (1, 128, 128, 8, 8, 128),
                 (1, 128, 128, 4, 2, 64), (1, 100, 100, 4, 2, 64),
-                (1, 100, 100, 4, 2, 128)]
+                (1, 100, 100, 4, 2, 128), (1, 256, 256, 8, 1, 128)]
+    fa_bf16_worst = (0.0, 0.0, 0.0)     # (max abs, rel L2, share of limit)
     for (b_, sq, sk, hq, hkv, hd) in sweep_fa:
         for causal, window in ((True, 0), (True, 64), (False, 0)):
-            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            for dt in (torch.float32, torch.bfloat16):
                 q = rnd(b_, sq, hq, hd, dtype=dt)
                 k = rnd(b_, sk, hkv, hd, dtype=dt)
                 v = rnd(b_, sk, hkv, hd, dtype=dt)
                 got = flash_attention(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
-                close(got, ref.flash_attention_ref(
-                    q, k, v, causal=causal, window=window), tol, 0.0,
-                    f"flash_attention {(b_, sq, sk, hq, hkv, hd)} "
-                    f"causal={causal} window={window} {dt}")
+                want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+                what = (f"flash_attention {(b_, sq, sk, hq, hkv, hd)} "
+                        f"causal={causal} window={window} {dt}")
+                if dt == torch.float32:
+                    close(got, want, 2e-5, 0.0, what)
+                else:
+                    fa_bf16_worst = max(fa_bf16_worst, close_bf16_attention(
+                        got, want, what), key=lambda r: r[2])
     # a row of C alone equals the same row inside 300 (one K order, the
     # plan from N and K only), with and without a split of K
     for (k, n) in ((768, 3072), (3072, 768), (2048, 2048)):
@@ -524,7 +591,10 @@ def main() -> int:
         check(torch.equal(full[17:18], part), f"streamed_matmul row 17 of "
               f"300 differs from the row alone at K={k} N={n}")
     log(f"[kernels] sweep ok: {len(sweep_mm) * 2} matmul and "
-        f"{len(sweep_fa) * 6} attention cases, f32 and bf16; matmul rows "
+        f"{len(sweep_fa) * 6} attention cases, f32 and bf16 (bf16 at "
+        f"worst {fa_bf16_worst[2]:.3f}x its one-ulp limit, max abs err "
+        f"{fa_bf16_worst[0]:.3e}, relative L2 {fa_bf16_worst[1]:.3e} <= "
+        f"{BF16_ATTN_REL_L2}); matmul rows "
         f"bit-equal alone and in a batch of 300 at (K, N) = (768, 3072), "
         f"(3072, 768), (2048, 2048)")
 
@@ -568,37 +638,62 @@ def main() -> int:
             # the f32 kernel on 16-byte aligned rows
             regs = entry_usage(kn, "matmul_kernelIfLi0E")
             plan = f"splits {tile_for(n, k)}, "
+            fma = None
         else:
-            b_, sq, sk, hq, hkv, hd, causal, window = key
-            check(hq == hkv and window == 0,
-                  f"the SDPA yardstick takes MHA without a window, got {key}")
-            q, k, v = rnd(b_, sq, hq, hd), rnd(b_, sk, hkv, hd), \
-                rnd(b_, sk, hkv, hd)
+            b_, sq, sk, hq, hkv, hd, causal, window, dt = key
+            check(window == 0,
+                  f"the SDPA yardstick takes no window, got {key}")
+            q, k, v = rnd(b_, sq, hq, hd, dtype=dt), \
+                rnd(b_, sk, hkv, hd, dtype=dt), rnd(b_, sk, hkv, hd, dtype=dt)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             kern = lambda: flash_attention(q, k, v, causal=causal,
                                            window=window)
             plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                     window=window)
-            library = lambda: sdpa(qt, kt, vt, is_causal=causal)
-            atol, rtol = 2e-5, 0.0
-            regs = entry_usage(kn, f"flash_kernelIfLi{hd}E")
-            plan = ""
+            atol, rtol = 2e-5, 0.0          # f32; bf16 in ULP form below
+            gqa = {"enable_gqa": True} if hq != hkv else {}
+            library = lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)
+            regs = entry_usage(kn, f"flash_kernelIfLi{hd}E"
+                               if dt == torch.float32 else
+                               f"bfloat16Li{hd}E")
+            # a bf16 launch's bound is the tensor cores'; the kernel
+            # computes on the FMA units, whose bound is printed beside it
+            fma = bound_ms(*shape_work(kn, key), peaks)[0]
+            plan = f"f32-FMA bound {fma:.4f} ms, " \
+                if dt == torch.bfloat16 else ""
         got = kern()
         torch.cuda.synchronize()
-        err = close(got, plain(), atol, rtol, f"slice shape {shape}")
+        if kn == "flash_attention" and dt == torch.bfloat16:
+            err, rel, ulp = close_bf16_attention(got, plain(),
+                                                 f"slice shape {shape}")
+            plan += (f"bf16 check: max abs err {err:.3e} (each element "
+                     f"within atol {BF16_ATTN_ATOL} + rtol 2^-7 |plain|, at "
+                     f"worst {ulp:.3f}x it), relative L2 {rel:.3e} (<= "
+                     f"{BF16_ATTN_REL_L2}); ")
+        else:
+            err = close(got, plain(), atol, rtol, f"slice shape {shape}")
         flops, nbytes = shape_work(kn, key)
-        bms, bby = bound_ms(flops, nbytes, peaks)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bms, bby = bound_ms(flops, nbytes, peaks, key[-1]
+                            if kn == "flash_attention" else torch.float32)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             library()
             torch.cuda.synchronize()
-        lib_kernels = sorted({ev.key for ev in prof.key_averages() if
-                              getattr(ev, "self_device_time_total", 0) > 0})
+        # the kernels the library ran; where the profiler saw none (bf16
+        # SDPA on the card), the ATen operators it dispatched to
+        events = prof.key_averages()
+        lib_kernels = sorted({
+            ev.key for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0}) or sorted(
+                {ev.key for ev in events if ev.key.startswith("aten::")})
         measured[shape] = {"ms": call_ms(kern), "plain_ms": call_ms(plain),
                            "library_ms": call_ms(library),
                            "device_ms": device_ms(kern),
                            "library_device_ms": device_ms(library),
                            "library_kernels": lib_kernels,
                            "bound_ms": bms, "bound_by": bby,
+                           "fma_bound_ms": fma,
                            "max_abs_err": err, "registers": regs[0],
                            "spill_bytes": None if regs[0] is None
                            else regs[1] + regs[2]}
@@ -1211,13 +1306,13 @@ def main() -> int:
         f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(10)))
     del prof
 
-    def logits_close(got, want, what):
+    def logits_close(got, want, what, atol=LOGIT_ATOL, rel_l2=LOGIT_REL_L2):
         """Max abs and relative L2 error of two runs' logits, checked
-        against LOGIT_ATOL and LOGIT_REL_L2."""
-        err = close(got, want, LOGIT_ATOL, 0.0, what)
+        against ``atol`` and ``rel_l2``."""
+        err = close(got, want, atol, 0.0, what)
         rel = ((got - want).norm() / want.norm()).item()
-        check(rel <= LOGIT_REL_L2, f"{what}: relative L2 error {rel:.3e} "
-              f"beyond {LOGIT_REL_L2}")
+        check(rel <= rel_l2, f"{what}: relative L2 error {rel:.3e} "
+              f"beyond {rel_l2}")
         return err, rel
 
     def plain_ssd(x, dt, a, b_, c, d, *, chunk):
@@ -1303,6 +1398,217 @@ def main() -> int:
     log(f"[mamba] max_memory_allocated {mamba_mem / 1e6:.1f} MB")
     del params, cache, requests, prompt, want, got, out, pre, dec
 
+    # ---- 7b. Yi-6B through the model path (the dense family) -------------
+    t_dense = time.perf_counter()
+    darch = get_arch(DENSE)
+    dcfg = darch.model
+    nq, nkv, dhd = dcfg.n_heads, dcfg.n_kv_heads, dcfg.resolved_head_dim
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dpre = model.make_step_bundle(darch, ShapeConfig(
+        "prefill", DENSE_SEQ, DENSE_BATCH, "prefill"), env)
+    dgen = torch.Generator(device=dev).manual_seed(4)
+    t0 = time.perf_counter()
+    dparams = shd.init_params(dpre.arg_specs[0], dgen, dev)
+    torch.cuda.synchronize()
+    log(f"[dense] {smi}: {DENSE}: {dcfg.num_layers} layers, d_model "
+        f"{dcfg.d_model}, {nq} query and {nkv} KV heads of {dhd}, d_ff "
+        f"{dcfg.d_ff}, vocab {dcfg.vocab}, bf16; "
+        f"{shd.param_count(dpre.arg_specs[0]) / 1e9:.3f}B parameters "
+        f"({shd.param_bytes(dpre.arg_specs[0]) / 1e9:.2f} GB) drawn on "
+        f"{dev} in {time.perf_counter() - t0:.2f}s")
+
+    def fa_key(b_, s_):
+        return ("flash_attention", (b_, s_, s_, nq, nkv, dhd, True, 0,
+                                    torch.bfloat16))
+
+    def counted():
+        return Counter({(kn, key): c for kn, by_shape in
+                        ops.launch_counts_by_shape().items()
+                        for key, c in by_shape.items()})
+
+    # (a) full width, all 32 layers, 2 x 256: prefill through the kernel
+    # against the same prefill through its plain version, then decode step
+    # by step from the zero cache against the prefill
+    cpre = model.make_step_bundle(darch, ShapeConfig(
+        "prefill", CONSIST_SEQ, CONSIST_BATCH, "prefill"), env)
+    cdec = model.make_step_bundle(darch, ShapeConfig(
+        "decode", CONSIST_SEQ, CONSIST_BATCH, "decode"), env)
+    prompt = torch.randint(0, dcfg.vocab, (CONSIST_BATCH, CONSIST_SEQ),
+                           generator=dgen, device=dev, dtype=torch.int32)
+    ops.reset_launch_counts()
+    want = cpre.fn(dparams, {"tokens": prompt})
+    torch.cuda.synchronize()
+    check(counted() == Counter({fa_key(CONSIST_BATCH, CONSIST_SEQ):
+                                dcfg.num_layers}),
+          f"consistency prefill launches {dict(counted())}")
+    with mock.patch.object(ops, "attention", ref.flash_attention_ref):
+        plain_out = cpre.fn(dparams, {"tokens": prompt})
+        torch.cuda.synchronize()
+    dense_plain_err, dense_plain_rel = logits_close(
+        want, plain_out, "Yi-6B prefill through flash_attention vs through "
+        "its plain version", DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
+    log(f"[dense] prefill {CONSIST_BATCH} x {CONSIST_SEQ} through "
+        f"flash_attention vs through flash_attention_ref: max abs err "
+        f"{dense_plain_err:.3e} (atol {DENSE_LOGIT_ATOL}), relative L2 "
+        f"{dense_plain_rel:.3e} (<= {DENSE_LOGIT_REL_L2}), |logits| up to "
+        f"{want.abs().max().item():.3f}, same argmax in "
+        f"{int((want.argmax(-1) == plain_out.argmax(-1)).sum())}/"
+        f"{CONSIST_BATCH} rows")
+    cache = shd.init_params(cdec.arg_specs[1], dgen, dev)        # zeros
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(CONSIST_SEQ):
+        got, cache = cdec.fn(dparams, cache, prompt[:, t:t + 1], torch.full(
+            (CONSIST_BATCH,), t, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    consist_s = time.perf_counter() - t0
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    dense_consist_err, dense_consist_rel = logits_close(
+        got, want, "Yi-6B decode from the zero cache vs prefill",
+        DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
+    pick = got.argmax(-1, keepdim=True)
+    gap = (want.amax(-1, keepdim=True) - want.gather(-1, pick)).max().item()
+    check(gap <= DENSE_LOGIT_ATOL, f"decode picks {pick.flatten().tolist()}"
+          f", {gap:.3e} below the prefill's best logit")
+    log(f"[dense] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
+        f"the zero cache ({consist_s:.3f} s, no kernel launch) vs prefill: "
+        f"max abs err {dense_consist_err:.3e} (atol {DENSE_LOGIT_ATOL}), "
+        f"relative L2 {dense_consist_rel:.3e}; decode picks "
+        f"{pick.flatten().tolist()}, prefill "
+        f"{want.argmax(-1).flatten().tolist()}")
+    del cache, got, want, plain_out, prompt, cpre, cdec
+
+    # (b) prefill requests of DENSE_BATCH x DENSE_SEQ tokens: one bf16
+    # flash_attention per layer, at the key counted here
+    requests = [torch.randint(0, dcfg.vocab, (DENSE_BATCH, DENSE_SEQ),
+                              generator=dgen, device=dev, dtype=torch.int32)
+                for _ in range(DENSE_REQUESTS)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls = []
+    for toks in requests:
+        t0 = time.perf_counter()
+        out = dpre.fn(dparams, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(tuple(out.shape) == (DENSE_BATCH, 1, dcfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              f"Yi-6B prefill logits {tuple(out.shape)} not finite")
+    dense_shapes = counted()
+    dense_key = fa_key(DENSE_BATCH, DENSE_SEQ)
+    check(dense_shapes == Counter({dense_key: dcfg.num_layers
+                                   * DENSE_REQUESTS}),
+          f"prefill launches {dict(dense_shapes)}, expected "
+          f"{dcfg.num_layers} a request at {dense_key}")
+    tokens_req = DENSE_BATCH * DENSE_SEQ
+    log(f"[dense] {smi}: prefill {DENSE_REQUESTS} requests of {DENSE_BATCH} "
+        f"x {DENSE_SEQ} tokens: wall "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
+        f"launches {dict(dense_shapes)} ({dcfg.num_layers} a request)")
+
+    # (c) one more warm prefill under the profiler (its launches are not
+    # counted above): device time of flash_attention, of the library's
+    # matmuls (the projections, torch.matmul) and of the rest by kernel
+    # name, and the share of the wall the compute stream was idle
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dpre.fn(dparams, {"tokens": requests[-1]})
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    split, rest = Counter(), Counter()
+    for kname, ms_ in device_by_name(prof).items():
+        if "flash_kernel" in kname:
+            split["flash_attention"] += ms_
+        elif MATMUL_NAMES.search(kname):
+            split["matmul"] += ms_
+        else:
+            split["rest"] += ms_
+            rest[kname] += ms_
+    busy = sum(split.values())
+    check(split["flash_attention"] > 0,
+          "the profiler saw no flash_attention in a prefill")
+    warm = min(walls[1:])
+    log(f"[dense] {smi}: profiled prefill of {DENSE_BATCH} x {DENSE_SEQ}: "
+        f"wall {prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device time "
+        f"flash_attention {split['flash_attention']:.3f} ms "
+        f"({split['flash_attention'] / 1e3 / warm:.1%} of the warm wall), "
+        f"matmuls {split['matmul']:.3f} ms, the rest {split['rest']:.3f} ms; "
+        f"compute stream busy {busy:.3f} ms, idle "
+        f"{1 - busy / 1e3 / prof_wall:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / warm:.1%} of the warm wall)")
+    log(f"[dense] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(8)))
+    del prof, requests, out
+
+    # (d) the kernel at the prefill's shape against its plain version, its
+    # bounds (bf16 tensor cores, and f32 FMA where it computes), and the
+    # one PyTorch call that computes the same function (bf16 SDPA with
+    # enable_gqa), timed as a yardstick only
+    measure(dense_key)
+    r = measured[dense_key]
+    log(f"[dense] {smi}: flash_attention {dense_key[1]}: device time "
+        f"{r['device_ms']:.4f} ms a call, bounds {r['bound_ms']:.4f} ms "
+        f"(bf16 tensor cores) and {r['fma_bound_ms']:.4f} ms (f32 FMA), "
+        f"bf16 SDPA {r['library_device_ms']:.4f} ms "
+        f"({r['device_ms'] / r['library_device_ms']:.2f}x); "
+        f"{dcfg.num_layers} calls a request: "
+        f"{dcfg.num_layers * r['device_ms'] / 1e3:.4f} s")
+
+    # (e) decode at batch DENSE_DECODE_BATCH over a cache of DENSE_SEQ
+    # slots (the last DENSE_DECODE_STEPS positions): ms a step, then one
+    # step under the profiler, and the cost of widening one layer's cache
+    # to f32 for the f32 products (decode_attention)
+    ddec = model.make_step_bundle(darch, ShapeConfig(
+        "decode", DENSE_SEQ, DENSE_DECODE_BATCH, "decode"), env)
+    cache = shd.init_params(ddec.arg_specs[1], dgen, dev)        # zeros
+    tok = torch.randint(0, dcfg.vocab, (DENSE_DECODE_BATCH, 1),
+                        generator=dgen, device=dev, dtype=torch.int32)
+    first = DENSE_SEQ - DENSE_DECODE_STEPS
+    ops.reset_launch_counts()
+    steps = []
+    for t in range(first, DENSE_SEQ):
+        t0 = time.perf_counter()
+        out, cache = ddec.fn(dparams, cache, tok, torch.full(
+            (DENSE_DECODE_BATCH,), t, dtype=torch.int32, device=dev))
+        tok = out.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    check(tuple(out.shape) == (DENSE_DECODE_BATCH, 1, dcfg.vocab)
+          and bool(torch.isfinite(out).all()), "decode logits not finite")
+    pos = torch.full((DENSE_DECODE_BATCH,), DENSE_SEQ - 1, dtype=torch.int32,
+                     device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ddec.fn(dparams, cache, tok, pos)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+    dsplit = Counter()
+    for kname, ms_ in device_by_name(prof).items():
+        dsplit["matmul" if MATMUL_NAMES.search(kname) else "rest"] += ms_
+    widen_ms = device_ms(lambda: (cache["k"][0].float(),
+                                  cache["v"][0].float()), n=5, rounds=3)
+    dense_mem = torch.cuda.max_memory_allocated()
+    log(f"[dense] {smi}: decode {DENSE_DECODE_STEPS} steps at batch "
+        f"{DENSE_DECODE_BATCH}, cache {tuple(cache['k'].shape)} "
+        f"({cache['k'].numel() * 4 / 1e9:.2f} GB of k and v): median step "
+        f"{np.median(steps) * 1e3:.3f} ms, first {steps[0] * 1e3:.3f} ms, "
+        f"no kernel launch; one step profiled: wall {step_wall * 1e3:.3f} "
+        f"ms, device time matmuls {dsplit['matmul']:.3f} ms, the rest "
+        f"{dsplit['rest']:.3f} ms, idle "
+        f"{1 - sum(dsplit.values()) / 1e3 / step_wall:.1%}; widening one "
+        f"layer's k and v to f32 {widen_ms:.3f} ms of device time "
+        f"({widen_ms * dcfg.num_layers:.3f} ms over {dcfg.num_layers} "
+        f"layers); max_memory_allocated {dense_mem / 1e6:.1f} MB; the "
+        f"phase took {time.perf_counter() - t_dense:.1f} s")
+    del dparams, cache, out, tok, prof, dpre, ddec
+
     # ---- 8. ops.pack over one GPT-Neo-1.3B layer's weights ----------------
     big_cfg = get_arch(SERVE_MODELS[0]).model
     layer_w = layer_weights(big_cfg)
@@ -1370,9 +1676,10 @@ def main() -> int:
 
     # ---- 9. summary -------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
-    # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the pack
-    # pass (phase 8)
-    path_counts = serve_shapes + fleet_shapes + mamba_shapes + pack_shapes
+    # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the Yi-6B
+    # prefill requests (phase 7b), the pack pass (phase 8)
+    path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
+        dense_shapes + pack_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -1413,6 +1720,8 @@ def main() -> int:
         + f"; serving max abs err vs plain {serve_err:.2e}; fleet "
         f"{fleet_err:.2e}; Mamba-2 prefill "
         f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
+        f"Yi-6B prefill vs plain {dense_plain_err:.2e}, decode vs prefill "
+        f"{dense_consist_err:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 # kernel launches since the last reset, by (B, Sq, Sk, Hq, Hkv, hd, causal,
-# window)
+# window, dtype)
 launches: Counter = Counter()
 
 
@@ -68,7 +68,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         hkv, hd, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
-    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window))] += 1
+    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window),
+              q.dtype)] += 1
     return o
 
 

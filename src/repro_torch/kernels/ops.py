@@ -67,8 +67,9 @@ def launch_counts() -> Dict[str, int]:
 def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
-    window) for ``flash_attention``, (B, S, H, P, N, Q) for ``ssd_scan``
-    and (R, C, tr, tc, dtype) for ``layout_pack``."""
+    window, dtype) for ``flash_attention``, (B, S, H, P, N, Q) for
+    ``ssd_scan`` and (R, C, tr, tc, dtype) for ``layout_pack``. The dtype
+    keeps an f32 launch apart from a bf16 one of the same shape."""
     return {name: Counter(mod.launches) for name, mod in KERNELS.items()}
 
 

@@ -2,11 +2,12 @@
 its inputs, and the real tensors for tests and the smoke run.
 
 The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
-kinds. ``train`` waits for the training slice and the enc-dec family for
-its own (``ROADMAP.md`` §1); ``lower_step`` is the dry-run's XLA lowering
-and waits with ``launch/dryrun.py``. ``params_from_numpy`` carries a JAX
-parameter tree (or decode cache), mapped through ``np.asarray``, into the
-port's tensors with the same dtypes.
+kinds of the SSM and dense families. ``train`` waits for the training
+slice and the enc-dec family for its own (``ROADMAP.md`` §1);
+``lower_step`` is the dry-run's XLA lowering and waits with
+``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
+(or decode cache), mapped through ``np.asarray``, into the port's tensors
+with the same dtypes.
 """
 from __future__ import annotations
 
@@ -79,6 +80,11 @@ def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 # step bundles
 # ---------------------------------------------------------------------------
 
+# the JAX package's attention schedules: its block grid ("full", "banded",
+# "paired") and context-parallel prefill ("cp")
+ATTN_MODES = ("full", "banded", "paired", "cp")
+
+
 @dataclass
 class StepBundle:
     """One (arch x shape) step: the function and its inputs' spec trees."""
@@ -86,8 +92,21 @@ class StepBundle:
     arg_specs: tuple             # ParamSpec trees, in call order
 
 
-def make_step_bundle(arch: ArchConfig, shape: ShapeConfig,
-                     env: MeshEnv) -> StepBundle:
+def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
+                     attn_mode: str = "paired") -> StepBundle:
+    """The step of ``shape.kind``. A prefill batch carries ``tokens``, or
+    ``embeds`` and ``positions`` for the vision stub; decode takes ``pos``
+    [B] ([3,B] under M-RoPE).
+
+    ``attn_mode`` is one of ``ATTN_MODES`` and computes the same prefill
+    in each: the block-grid schedules leave the function unchanged, and
+    ``"cp"`` on one device (one model shard, the query chunk at offset 0,
+    the weight and K/V gathers identities) is the ordinary prefill. Its
+    sharding across devices waits for the mesh slice (``ROADMAP.md`` §1
+    item 10)."""
+    if attn_mode not in ATTN_MODES:
+        raise ValueError(f"attn_mode {attn_mode!r} is not one of "
+                         f"{ATTN_MODES}")
     cfg = arch.model
     run = arch.run_config(shape.name)
     if shape.kind == "train":
@@ -98,7 +117,9 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig,
 
     if shape.kind == "prefill":
         def fn(params, batch):
-            return transformer.prefill(cfg, run, env, params, batch["tokens"])
+            return transformer.prefill(
+                cfg, run, env, params, batch.get("tokens"),
+                embeds=batch.get("embeds"), positions=batch.get("positions"))
         return StepBundle(fn=fn, arg_specs=(
             pspecs, batch_specs(cfg, shape, train=False)))
 

@@ -1,5 +1,5 @@
 """The port on the card: its CUDA kernels against their plain versions, the
-copy-stream path, the executors and the Mamba-2 model path. Every test needs an NVIDIA card
+copy-stream path, the executors and the Mamba-2 and dense model paths. Every test needs an NVIDIA card
 (``cuda`` marker) and skips without one; the file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
@@ -20,7 +20,8 @@ MM_SHAPES = [(8, 128, 128), (64, 256, 128), (128, 128, 384), (256, 512, 256),
 FA_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
              (2, 64, 64, 2, 1, 16), (1, 128, 128, 8, 8, 128),
              (1, 100, 100, 4, 2, 64), (1, 1024, 1024, 12, 12, 64),
-             (1, 1024, 1024, 16, 16, 128), (1, 100, 100, 4, 2, 128)]
+             (1, 1024, 1024, 16, 16, 128), (1, 100, 100, 4, 2, 128),
+             (1, 256, 256, 8, 1, 128), (2, 512, 512, 16, 2, 128)]
 MASKS = [(True, 0), (True, 64), (False, 0)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -69,6 +70,11 @@ def test_flash_attention_kernel(dev, b, sq, sk, hq, hkv, hd, causal, window,
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if dtype == "bfloat16":
+        # both round an f32 result to bf16: at most one bf16 ulp apart
+        # above a floor for outputs near zero
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                   rtol=2 ** -7)
 
 
 @pytest.mark.parametrize("k,n,split", [(768, 2048, False), (768, 3072, True),
@@ -101,7 +107,8 @@ def test_dispatch_launches_and_counts(dev):
                                    "layout_pack": 0}
     assert ops.launch_counts_by_shape() == {
         "streamed_matmul": {(64, 128, 64): 1},
-        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0): 1},
+        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0, torch.float32):
+                            1},
         "ssd_scan": {}, "layout_pack": {}}
 
 
@@ -411,3 +418,50 @@ def test_mamba_prefill_and_decode_on_the_card(dev):
     assert cpu[2] == 0 and card[2] == cfg.num_layers
     for i in (0, 1):
         torch.testing.assert_close(card[i], cpu[i], atol=4e-2, rtol=0)
+
+
+def test_dense_prefill_and_decode_on_the_card(dev):
+    """A narrow dense stack at the full models' attention widths (hd 128,
+    8 query heads on 1 KV head, 2 layers, bf16) through the model path on
+    the card (bf16 flash_attention in every prefill layer, plain PyTorch
+    decode) against the same bundle on the CPU. cuBLAS and the CPU round
+    bf16 products apart here and there: logits up to about 4 within 0.1
+    (the bf16 tolerance of tests/test_torch_dense.py)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    cfg = replace(get_arch("yi-6b").model.reduced(), d_model=256, n_heads=8,
+                  n_kv_heads=1, head_dim=128, d_ff=512)
+    arch = ArchConfig(model=cfg)
+    seq, batch = 128, 2
+    key = (batch, seq, seq, 8, 1, 128, True, 0, torch.bfloat16)
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    params, cache, _, _ = model.init_inputs(model.make_step_bundle(
+        arch, ShapeConfig("d", seq, batch, "decode"),
+        make_host_mesh(device="cpu")), gen, "cpu")
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    for where in ("cpu", dev):
+        env = make_host_mesh(device=where)
+        pre = model.make_step_bundle(arch, ShapeConfig("p", seq, batch,
+                                                       "prefill"), env)
+        dec = model.make_step_bundle(arch, ShapeConfig("d", seq, batch,
+                                                       "decode"), env)
+        p = tree_map(lambda t: t.to(where), params)
+        c = tree_map(lambda t: t.to(where), cache)
+        ops.reset_launch_counts()
+        logits = pre.fn(p, {"tokens": toks.to(where)})
+        counted = ops.launch_counts_by_shape()["flash_attention"]
+        for t in range(4):
+            step, c = dec.fn(p, c, toks[:, t:t + 1].to(where),
+                             torch.full((batch,), t, dtype=torch.int32,
+                                        device=where))
+        assert ops.launch_counts_by_shape()["flash_attention"] == counted
+        out[str(where)] = (logits.cpu(), step.cpu(), counted)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert cpu[2] == {} and card[2] == {key: cfg.num_layers}
+    for i in (0, 1):
+        torch.testing.assert_close(card[i], cpu[i], atol=0.1, rtol=0)

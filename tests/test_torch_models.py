@@ -31,7 +31,7 @@ from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import make_host_mesh
@@ -425,14 +425,20 @@ def test_decode_from_zero_cache_matches_prefill(f32):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("what", ["train", "attn", "moe", "hybrid",
+@pytest.mark.parametrize("what", ["train", "moe-in-dense", "moe", "hybrid",
                                   "encdec"])
 def test_unported_paths_raise(what):
+    """The paths of later slices raise, naming the roadmap; "moe-in-dense"
+    is a dense attention stack whose FFN is a MoE block."""
     env = make_host_mesh(device=CPU)
-    names = {"attn": "qwen1.5-4b", "moe": "mixtral-8x22b",
+    names = {"moe-in-dense": "qwen1.5-4b", "moe": "mixtral-8x22b",
              "hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
              "train": "mamba2-130m"}
-    arch = ArchConfig(model=get_arch(names[what]).model.reduced())
+    cfg = get_arch(names[what]).model.reduced()
+    if what == "moe-in-dense":
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, d_ff=64))
+        assert cfg.family == "dense" and cfg.layer_kinds()[0] == "attn"
+    arch = ArchConfig(model=cfg)
     kind = "train" if what == "train" else "prefill"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, kind), env)
