@@ -29,8 +29,8 @@ executors, then drives each path through the port's own entry points:
   and decode from the zero cache against prefill (2 x 256), three prefill
   requests of 2 x 4096 tokens (a bf16 ``flash_attention`` in every layer),
   one more under the profiler, the kernel at that shape against its plain
-  version, both bounds and bf16 SDPA, and decode at batch 8 over a
-  4096-slot KV cache;
+  version, its tensor-core bound and bf16 SDPA, and decode at batch 8
+  over a 4096-slot KV cache;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
 
@@ -48,8 +48,8 @@ call's ``library_device_ms``) is device time per call: CUDA events around
 20 back-to-back calls, so the host's dispatch of a call overlaps the
 device's work on the one before, the median of 5 rounds. ``bound_ms``
 takes a launch's operations at the peak of their type: f32 on the FMA
-units, bf16 on the tensor cores; a bf16 attention row also carries
-``fma_bound_ms``, the bound of the FMA units the kernel computes on.
+units, bf16 on the tensor cores, where the bf16 ``flash_attention``
+kernel computes (``wgmma``).
 
 ``ssd_scan`` runs as three passes in four CUDA launches, counted as one
 call; phase 3d holds each pass against its plain statement
@@ -125,11 +125,12 @@ DENSE_BATCH, DENSE_SEQ, DENSE_REQUESTS = 2, 4096, 3
 DENSE_DECODE_BATCH, DENSE_DECODE_STEPS = 8, 16
 # Yi-6B logits (up to about 5 with these random weights) of two runs that
 # differ in attention's f32 summation order (the kernel's online softmax
-# over 32-key tiles vs the plain version's one softmax), or of decode step
-# by step (softmax weights rounded to bf16 before PV) vs prefill: the bf16
-# residual stream of 32 layers carries one-ulp differences on. A CPU
-# emulation of both at full depth (widths 1024 and 2048, seeds 0-1, the
-# kernel's order written out in PyTorch) read 0.074-0.078 max abs and
+# over 64-key tiles, P carried as two bf16 terms, vs the plain version's
+# one softmax), or of decode step by step (softmax weights rounded to bf16
+# before PV) vs prefill: the bf16 residual stream of 32 layers carries
+# one-ulp differences on. A CPU emulation of both at full depth (widths
+# 1024 and 2048, seeds 0-1, the earlier FMA kernel's order over 32-key
+# tiles written out in PyTorch) read 0.074-0.078 max abs and
 # 1.6-1.7% relative L2 for the order, 0.090-0.104 and 1.9-2.1% for decode;
 # the checks allow about twice that
 DENSE_LOGIT_ATOL = 0.2
@@ -638,7 +639,6 @@ def main() -> int:
             # the f32 kernel on 16-byte aligned rows
             regs = entry_usage(kn, "matmul_kernelIfLi0E")
             plan = f"splits {tile_for(n, k)}, "
-            fma = None
         else:
             b_, sq, sk, hq, hkv, hd, causal, window, dt = key
             check(window == 0,
@@ -653,14 +653,12 @@ def main() -> int:
             atol, rtol = 2e-5, 0.0          # f32; bf16 in ULP form below
             gqa = {"enable_gqa": True} if hq != hkv else {}
             library = lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)
+            # f32 runs the FMA kernel, bf16 the tensor-core kernel, whose
+            # bound is the tensor cores' (bound_ms below)
             regs = entry_usage(kn, f"flash_kernelIfLi{hd}E"
                                if dt == torch.float32 else
-                               f"bfloat16Li{hd}E")
-            # a bf16 launch's bound is the tensor cores'; the kernel
-            # computes on the FMA units, whose bound is printed beside it
-            fma = bound_ms(*shape_work(kn, key), peaks)[0]
-            plan = f"f32-FMA bound {fma:.4f} ms, " \
-                if dt == torch.bfloat16 else ""
+                               f"flash_tc_kernelILi{hd}E")
+            plan = ""
         got = kern()
         torch.cuda.synchronize()
         if kn == "flash_attention" and dt == torch.bfloat16:
@@ -693,7 +691,6 @@ def main() -> int:
                            "library_device_ms": device_ms(library),
                            "library_kernels": lib_kernels,
                            "bound_ms": bms, "bound_by": bby,
-                           "fma_bound_ms": fma,
                            "max_abs_err": err, "registers": regs[0],
                            "spill_bytes": None if regs[0] is None
                            else regs[1] + regs[2]}
@@ -1522,7 +1519,7 @@ def main() -> int:
         prof_wall = time.perf_counter() - t0
     split, rest = Counter(), Counter()
     for kname, ms_ in device_by_name(prof).items():
-        if "flash_kernel" in kname:
+        if "flash_kernel" in kname or "flash_tc_kernel" in kname:
             split["flash_attention"] += ms_
         elif MATMUL_NAMES.search(kname):
             split["matmul"] += ms_
@@ -1546,15 +1543,18 @@ def main() -> int:
     del prof, requests, out
 
     # (d) the kernel at the prefill's shape against its plain version, its
-    # bounds (bf16 tensor cores, and f32 FMA where it computes), and the
-    # one PyTorch call that computes the same function (bf16 SDPA with
-    # enable_gqa), timed as a yardstick only
+    # bound (bf16 tensor cores, where it computes), and the one PyTorch call
+    # that computes the same function (bf16 SDPA with enable_gqa), timed as
+    # a yardstick only
     measure(dense_key)
     r = measured[dense_key]
+    dense_flops = shape_work(*dense_key)[0]
     log(f"[dense] {smi}: flash_attention {dense_key[1]}: device time "
-        f"{r['device_ms']:.4f} ms a call, bounds {r['bound_ms']:.4f} ms "
-        f"(bf16 tensor cores) and {r['fma_bound_ms']:.4f} ms (f32 FMA), "
-        f"bf16 SDPA {r['library_device_ms']:.4f} ms "
+        f"{r['device_ms']:.4f} ms a call, "
+        f"{dense_flops / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+        f"{r['bound_ms'] / r['device_ms']:.1%} of its {r['bound_ms']:.4f} ms "
+        f"bound (bf16 tensor cores, {r['bound_by']}), bf16 SDPA "
+        f"{r['library_device_ms']:.4f} ms "
         f"({r['device_ms'] / r['library_device_ms']:.2f}x); "
         f"{dcfg.num_layers} calls a request: "
         f"{dcfg.num_layers * r['device_ms'] / 1e3:.4f} s")

@@ -1,11 +1,22 @@
 """flash_attention: fused online-softmax attention, causal and/or sliding
 window, with GQA (kv head = q head // group).
 
-The CUDA kernel is ``csrc/flash_attention.cu`` (its header says what it
-replaces, what bounds it and how). ``flash_attention`` launches it on
-CUDA tensors in the ``[B, S, H, hd]`` layout of the JAX kernel; ``plain``
-is the same function in plain PyTorch, which the CPU path runs and
-``chip_smoke.py`` holds the kernel against.
+The CUDA source is ``csrc/flash_attention.cu``, two kernels behind one
+entry point, both replacing the Pallas kernel
+``repro/kernels/flash_attention.py::flash_attention``:
+
+* f32 (the serving path): IEEE f32 on the FMA units, bound by their
+  operations; ``cp.async`` rings and register tiles keep them fed.
+* bf16 (the dense model path): both products on the tensor cores
+  (``wgmma``, bf16 operands in 128-byte swizzled shared memory, f32
+  accumulators), bound by their operations. P is carried as two bf16
+  terms, hi + lo, so P V keeps f32 precision as in the Pallas kernel.
+
+The header of the source says what bounds each and what its design does.
+``flash_attention`` launches the kernel of q's dtype on CUDA tensors in
+the ``[B, S, H, hd]`` layout of the JAX kernel; ``plain`` is the same
+function in plain PyTorch, which the CPU path runs and ``chip_smoke.py``
+holds the kernel against.
 """
 from __future__ import annotations
 

@@ -77,6 +77,66 @@ def test_flash_attention_kernel(dev, b, sq, sk, hq, hkv, hd, causal, window,
                                    rtol=2 ** -7)
 
 
+def _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
+                         q_scale=1.0):
+    """The bf16 kernel against its plain version at the checks of
+    test_flash_attention_kernel: 2e-2 max abs, then one bf16 ulp above a
+    floor for outputs near zero."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(sq + sk + hq + hd)
+    q = _normal(rng, (b, sq, hq, hd), q_scale).to(dev, torch.bfloat16)
+    k, v = (_normal(rng, (b, sk, hkv, hd)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                               rtol=2 ** -7)
+
+
+# the Yi-6B head layout at length, a ragged GQA group of 8 under every
+# mask, and more keys than queries
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", [
+    (1, 2048, 2048, 32, 4, 128, True, 0),
+    (1, 1000, 1000, 8, 1, 128, True, 0),
+    (1, 1000, 1000, 8, 1, 128, True, 64),
+    (1, 1000, 1000, 8, 1, 128, False, 0),
+    (1, 64, 320, 4, 2, 64, False, 0)])
+def test_flash_attention_bf16_shapes(dev, b, sq, sk, hq, hkv, hd, causal,
+                                     window):
+    _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd", [
+    (2, 128, 128, 4, 2, 64), (1, 100, 100, 4, 2, 128),
+    (1, 256, 256, 8, 1, 128), (2, 64, 64, 2, 1, 16)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_bf16_large_scores(dev, b, sq, sk, hq, hkv, hd,
+                                           causal, window):
+    """q scaled by 8: scores of some tens, so the online rescale and the
+    split of P into bf16 hi + lo run over a wide range of exponents."""
+    _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
+                         q_scale=8.0)
+
+
+@pytest.mark.parametrize("hq,hd", [(16, 128), (12, 64)])
+def test_flash_attention_f32_serving_shapes(dev, hq, hd):
+    """The f32 kernel at the serving shapes (GPT-Neo-1.3B and GPT-Neo-S at
+    1024 tokens, causal) within 2e-5 of its plain version, the limit it
+    was built to, and the same bits on a second launch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(hq + hd)
+    q, k, v = (_normal(rng, (1, 1024, hq, hd)).to(dev) for _ in range(3))
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               atol=2e-5, rtol=0)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("k,n,split", [(768, 2048, False), (768, 3072, True),
                                        (3072, 768, True)])
 def test_matmul_rows_do_not_depend_on_the_batch(dev, k, n, split):

@@ -5,6 +5,8 @@ and what the CUDA kernels are held to on the card) against
 that file's tolerances. Inputs are drawn with numpy and handed to both.
 The CUDA kernels themselves are tested on the card in
 ``test_torch_cuda.py``."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 MM_SHAPES = [(8, 128, 128), (64, 256, 128), (128, 128, 384), (256, 512, 256),
              (40, 128, 256)]
@@ -147,3 +149,87 @@ def test_ssd_passes_match_jax_chunked_pallas_and_reference(b, s, h, p, n,
     np.testing.assert_allclose(_f32(y), _f32(pallas), atol=2e-3, rtol=1e-3)
     np.testing.assert_allclose(_f32(y), _f32(jax_ref.ssd_ref(
         *map(jnp.asarray, ins))), atol=2e-3, rtol=1e-3)
+
+
+def _tc_attention_emulation(q, k, v, causal, window, bq=64, bkv=64):
+    """The arithmetic of the bf16 tensor-core ``flash_attention`` kernel,
+    written out in PyTorch: for each warpgroup's 64 query rows, the visible
+    64-key tiles in order; S = QK^T from bf16 operands summed in f32 (each
+    product of two bf16 values is exact in f32); the online softmax in
+    base 2 (scores scaled by scale * log2 e, masked scores -1e30, keys past
+    Sk left out); P split into bf16 hi = bf16(P) and lo = bf16(P - hi),
+    both multiplied by V into one f32 accumulator; acc / max(l, 1e-30)
+    rounded to bf16."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale2 = math.log2(math.e) / math.sqrt(hd)
+    out = torch.zeros((b, sq, hq, hd))
+    for h in range(hq):
+        kh = k[:, :, h // (hq // hkv)].float()
+        vh = v[:, :, h // (hq // hkv)].float()
+        for q0 in range(0, sq, bq):
+            qh = q[:, q0:q0 + bq, h].float()
+            rows = torch.arange(q0, q0 + qh.shape[1])[:, None]
+            m = torch.full(qh.shape[:2], -1e30)
+            l = torch.zeros(qh.shape[:2])
+            acc = torch.zeros(qh.shape)
+            for k0 in range(0, sk, bkv):
+                if (causal and q0 + bq - 1 < k0) or \
+                        (window and q0 - (k0 + bkv - 1) >= window):
+                    continue                      # a hidden tile
+                keys = torch.arange(k0, min(k0 + bkv, sk))
+                s = (qh @ kh[:, keys].transpose(1, 2)) * scale2
+                vis = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+                if causal:
+                    vis &= rows >= keys[None]
+                if window:
+                    vis &= rows - keys[None] < window
+                s = torch.where(vis, s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                hi = p.bfloat16().float()
+                lo = (p - hi).bfloat16().float()
+                acc = acc * corr[..., None] + hi @ vh[:, keys] + \
+                    lo @ vh[:, keys]
+                m = m_new
+            out[:, q0:q0 + bq, h] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_tc_attention_design_within_one_bf16_ulp(hd, causal, window,
+                                                 q_scale):
+    """The bf16 kernel's numerical design against the plain version and
+    the JAX reference at the card's limits: 2e-2 max abs, and one bf16 ulp
+    (2^-7 relative) above a 1e-3 floor. A ragged length (200 = 3 tiles and
+    8 rows) and a GQA group of 2; q scaled by 8 gives scores of some tens."""
+    rng = np.random.default_rng(hd * 7 + int(q_scale) + window)
+    shapes = ((1, 200, 4, hd), (1, 200, 2, hd), (1, 200, 2, hd))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(_normal(rng, s) * (q_scale if i == 0 else 1.0), "bfloat16")
+        for i, s in enumerate(shapes))
+    got = _tc_attention_emulation(qt, kt, vt, causal, window).float()
+    for want in (ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                         window=window).float(),
+                 torch.from_numpy(_f32(jax_ref.flash_attention_ref(
+                     qj, kj, vj, causal=causal, window=window)))):
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=2 ** -7)
+
+
+def test_tc_attention_p_split_keeps_16_bits():
+    """hi + lo reproduces an f32 P in (0, 1] within 2^-16 relative (each
+    rounding to bf16 is within 2^-8 of its input), where hi alone is off by
+    up to 2^-9: the split is what keeps P V at f32 precision."""
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy(np.exp2(-rng.uniform(0, 30, 1 << 16)).astype(
+        np.float32))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    rel = ((hi + lo - p).abs() / p).max().item()
+    assert rel <= 2 ** -16
+    assert ((hi - p).abs() / p).max().item() > 2 ** -10

@@ -56,7 +56,7 @@ CUTS = {"as it is": [],
 def cut(src: str, pieces) -> str:
     for old, new in pieces:
         if src.count(old) != 1:
-            raise ValueError(f"the cut no longer matches ssd_scan.cu: {old!r}")
+            raise ValueError(f"the cut no longer matches the source: {old!r}")
         src = src.replace(old, new)
     return src
 
