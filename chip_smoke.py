@@ -57,7 +57,16 @@ call; phase 3d holds each pass against its plain statement
 and prints its device time by profiler kernel name against its own bound.
 
 Phase 8 also times ``layout_pack``'s library counterpart, the same copy
-as one PyTorch call (``view``, ``permute``, ``contiguous``).
+as one PyTorch call (``view``, ``permute``, ``contiguous``), and times
+by the profiler (``kernel_device_ms``: the device time of the call's own
+kernel, median of 20, host dispatch never counted), warm (back to back)
+and with a cold L2 (each call after a 256 MiB flush), the kernel, that
+call and a plain device copy of the same bytes (the card's ceiling for a
+copy). For a call as short as a pack's the host's dispatch is longer
+than the kernel, so ``device_ms`` then reads the dispatch. It prints the
+path ``pack_plan`` chose for each shape and the pass's cold time against
+its byte bound. Phase 3 holds the kernel bit-exact at each boundary of
+its two paths.
 
 Phase 5c serves the same requests once more with the planner's f32 rate
 pinned to what the previous version of the matmul kernel calibrated to,
@@ -101,6 +110,10 @@ REQUESTS = 4
 BUDGET_MB = 2048
 TIMED = 20          # timed calls (per round), after 3 untimed ones
 ROUNDS = 5          # rounds of back-to-back calls per device-time median
+FLUSH_BYTES = 256 << 20   # scratch written before each cold-L2 call
+# profiler names of the flush's device work: fill_, and amax, which
+# clears its reduction's semaphores with a memset before its kernel
+FLUSH_KERNELS = re.compile(r"FillFunctor|reduce_kernel|Memset")
 # the f32 rate HWSpec.cuda_calibrated measured with the previous,
 # register-staged version of the matmul kernel: 0.3459 ms a call at
 # CALIBRATION_SHAPE (1024 x 2048 x 2048) on an H100 80GB HBM3 at 700 W
@@ -215,6 +228,54 @@ def call_ms(fn, n: int = TIMED) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_device_ms(fn, *, cold: bool, n: int = TIMED) -> float:
+    """Device time in ms of the one kernel ``fn`` launches, by the
+    profiler: the median over ``n`` calls, host dispatch never counted.
+    The trace runs the calls twice and keeps the second round (the first
+    is the profiler's warm-up), each round between 10 ms of idle time, so
+    no activity of the kept round falls outside the traced window. Warm:
+    the calls back to back, so the operands of one call are in the L2 for
+    the next as far as they fit. Cold: each call preceded by a flush that
+    writes a 256 MiB scratch buffer (5x the 50 MB L2), then reads half of
+    it, so the lines it leaves are clean and no write-back of the flush
+    falls into the timed kernel; the flush's kernels are told apart by
+    name (``FLUSH_KERNELS``). In a long process a trace has been seen to
+    lose some activities, so the median is over the launches it kept, at
+    least half of them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    scratch = torch.empty(FLUSH_BYTES // 4 if cold else 0, device="cuda")
+    events = []
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: events.extend(
+                     (ev.name, ev.time_range.elapsed_us())
+                     for ev in p.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+                 ) as prof:
+        for _ in range(2):
+            time.sleep(0.01)
+            for _ in range(n):
+                if cold:
+                    scratch.fill_(1.0)
+                    scratch[: scratch.numel() // 2].amax()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+    del scratch
+    kernels = Counter(name for name, _ in events
+                      if not FLUSH_KERNELS.search(name))
+    check(len(kernels) == 1,
+          f"kernel timing: the calls launched {dict(kernels)}")
+    (name, count), = kernels.items()
+    check(n // 2 <= count <= n,
+          f"kernel timing: {count} launches of {name} in {n} calls")
+    return float(np.median([us for kname, us in events
+                            if kname == name])) / 1e3
 
 
 def ptxas_usage(log: str) -> dict:
@@ -401,6 +462,21 @@ def bits(t: torch.Tensor) -> torch.Tensor:
                    8: torch.int64}[t.dtype.itemsize])
 
 
+def pack_input(r: int, c: int, dtype: torch.dtype, skew: int, gen,
+               dev) -> torch.Tensor:
+    """A contiguous [r, c] of ``dtype`` on ``dev`` from ``gen`` (normal
+    values for floats, all bit patterns for integers) whose data starts
+    ``skew`` bytes past a 16-byte boundary."""
+    n = r * c + skew // dtype.itemsize
+    if dtype.is_floating_point:
+        flat = torch.randn(n, generator=gen).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        flat = torch.randint(info.min, info.max, (n,), generator=gen,
+                             dtype=dtype)
+    return flat.to(dev)[skew // dtype.itemsize:].view(r, c)
+
+
 @contextmanager
 def eviction_log():
     """Records the weight pool's evictions in order while it is open, as
@@ -470,7 +546,7 @@ def main() -> int:
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.layout_pack import layout_pack
+    from repro_torch.kernels.layout_pack import layout_pack, pack_plan
     from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan
     from repro_torch.kernels.streamed_matmul import streamed_matmul, tile_for
@@ -745,9 +821,35 @@ def main() -> int:
             torch.cuda.synchronize()
             check(torch.equal(bits(got), bits(ref.layout_pack_ref(
                 w, ops.native_tile(dt)))), f"layout_pack {(r, c)} {dt}")
+    # the boundaries of pack_plan's two paths: ((R, C), dtype, tile or the
+    # native one, bytes the input starts past a 16-byte boundary, the path)
+    boundary = [((70, 256), torch.float32, None, 0, "vector"),
+                ((33, 129), torch.float32, None, 0, "general"),
+                ((33, 129), torch.bfloat16, None, 0, "general"),
+                ((64, 96), torch.float32, (8, 64), 0, "general"),
+                ((48, 96), torch.float32, (5, 12), 0, "vector"),
+                ((40, 256), torch.uint8, None, 0, "vector"),
+                ((40, 256), torch.int64, None, 0, "vector"),
+                ((64, 256), torch.float32, None, 4, "general")]
+    for (r, c), dt, tile, skew, path in boundary:
+        w = pack_input(r, c, dt, skew, gen, dev)
+        tile = tile or ops.native_tile(dt)
+        got = layout_pack(w, tile)
+        torch.cuda.synchronize()
+        plan = pack_plan(r, c, *tile, dt.itemsize, w.data_ptr(),
+                         got.data_ptr())
+        check(plan.path == path and w.data_ptr() % 16 == skew,
+              f"layout_pack {(r, c)} {dt} tile {tile} skew {skew}: "
+              f"{plan.path} path, {path} expected")
+        check(torch.equal(bits(got), bits(ref.layout_pack_ref(w, tile))),
+              f"layout_pack {(r, c)} {dt} tile {tile} skew {skew}")
+        log(f"[kernels] layout_pack {(r, c)} {dt} tile {tile}, input "
+            f"{skew} B past 16: {plan.path} path ({plan.walk} walk, "
+            f"{plan.blocks} blocks), bit-exact")
     log(f"[kernels] sweep ok: {len(sweep_ssd)} ssd_scan cases (atol 2e-3, "
         f"rtol 1e-3 against ssd_ref) and {len(sweep_pack) * 2} layout_pack "
-        f"cases (bit-exact), f32 and bf16")
+        f"cases (bit-exact), f32 and bf16, and {len(boundary)} at the "
+        f"paths' boundaries")
 
     # (d) ssd_scan at the Mamba-2-130M prefill shape, timed, against the
     # sequential recurrence (its plain version) and against ssd_chunked
@@ -1640,39 +1742,86 @@ def main() -> int:
         check(torch.equal(bits(got), bits(want)), f"pack {shape}")
         flops, nbytes = shape_work("layout_pack", shape[1])
         bms, bby = bound_ms(flops, nbytes, peaks)
-        # on shapes the tile divides, the same copy is one PyTorch call
-        library = None
+        plan = pack_plan(r, c, tr, tc, dt.itemsize, w.data_ptr(),
+                         got.data_ptr())
+        # on shapes the tile divides, the same copy is one PyTorch call,
+        # and a plain device copy of the same bytes is the card's ceiling
+        library = copy = None
         if r % tr == 0 and c % tc == 0:
             def library():
                 return w.view(r // tr, tr, c // tc, tc).permute(
                     0, 2, 1, 3).contiguous()
+
+            def copy():
+                return torch.empty_like(w).copy_(w)
             check(torch.equal(bits(library()), bits(got)),
                   f"pack {shape}: the permute differs from the kernel")
         measured[shape] = {
             "ms": call_ms(lambda: layout_pack(w)),
             "device_ms": device_ms(lambda: layout_pack(w)),
+            "warm_device_ms": kernel_device_ms(lambda: layout_pack(w),
+                                               cold=False),
+            "cold_device_ms": kernel_device_ms(lambda: layout_pack(w),
+                                               cold=True),
             "plain_ms": call_ms(lambda: ref.layout_pack_ref(w, (tr, tc))),
             "library_ms": library and call_ms(library),
             "library_device_ms": library and device_ms(library),
-            "bound_ms": bms, "bound_by": bby,
+            "library_warm_device_ms": library and kernel_device_ms(
+                library, cold=False),
+            "library_cold_device_ms": library and kernel_device_ms(
+                library, cold=True),
+            "copy_warm_device_ms": copy and kernel_device_ms(copy,
+                                                             cold=False),
+            "copy_cold_device_ms": copy and kernel_device_ms(copy,
+                                                             cold=True),
+            "path": plan.path, "bound_ms": bms, "bound_by": bby,
             "max_abs_err": (got.float() - want.float()).abs().max().item()}
         m_ = measured[shape]
         lib_note = "no library call (the tile does not divide the shape)"
         if library:
-            lib_note = (f"library (view, permute, contiguous) one call "
-                        f"{m_['library_ms']:.4f} ms, device time "
-                        f"{m_['library_device_ms']:.4f} ms, kernel "
-                        f"{m_['device_ms'] / m_['library_device_ms']:.3f}x "
-                        f"the library")
-        log(f"[pack] {shape}: one call: kernel {m_['ms']:.4f} ms, plain "
-            f"{m_['plain_ms']:.4f} ms; device time {m_['device_ms']:.4f} ms; "
-            f"bound {bms:.4f} ms ({bby}, {nbytes / 1e6:.1f} MB), "
-            f"{nbytes / m_['device_ms'] / 1e6:.0f} GB/s, "
-            f"bit-exact; {lib_note}")
-        del w, got, want, library
+            lib_note = (
+                f"library (view, permute, contiguous) one call "
+                f"{m_['library_ms']:.4f} ms, events "
+                f"{m_['library_device_ms']:.4f} ms, kernel warm "
+                f"{m_['library_warm_device_ms']:.4f} ms, cold "
+                f"{m_['library_cold_device_ms']:.4f} ms: kernel "
+                f"{m_['warm_device_ms'] / m_['library_warm_device_ms']:.3f}x "
+                f"the library warm, "
+                f"{m_['cold_device_ms'] / m_['library_cold_device_ms']:.3f}x "
+                f"cold; plain copy of the same bytes warm "
+                f"{m_['copy_warm_device_ms']:.4f} ms, cold "
+                f"{m_['copy_cold_device_ms']:.4f} ms "
+                f"({nbytes / m_['copy_cold_device_ms'] / 1e6:.0f} GB/s), "
+                f"kernel "
+                f"{m_['cold_device_ms'] / m_['copy_cold_device_ms']:.3f}x "
+                f"the copy cold")
+        log(f"[pack] {shape}: {plan.path} path ({plan.walk} walk, "
+            f"{plan.blocks} blocks of {plan.threads}); one call: kernel "
+            f"{m_['ms']:.4f} ms, plain {m_['plain_ms']:.4f} ms; events "
+            f"around back-to-back calls {m_['device_ms']:.4f} ms; kernel "
+            f"warm {m_['warm_device_ms']:.4f} ms "
+            f"({nbytes / m_['warm_device_ms'] / 1e6:.0f} GB/s, "
+            f"{bms / m_['warm_device_ms']:.1%} of the bound), cold "
+            f"{m_['cold_device_ms']:.4f} ms "
+            f"({nbytes / m_['cold_device_ms'] / 1e6:.0f} GB/s, "
+            f"{bms / m_['cold_device_ms']:.1%}); bound {bms:.4f} ms ({bby}, "
+            f"{nbytes / 1e6:.1f} MB); bit-exact; {lib_note}")
+        del w, got, want, library, copy
+    # the pass: each shape's times and bound times its launches
+    pass_ms = {f: sum(measured[s][f] * n for s, n in pack_shapes.items())
+               for f in ("bound_ms", "warm_device_ms", "cold_device_ms",
+                         "library_warm_device_ms", "library_cold_device_ms",
+                         "copy_cold_device_ms")}
     log(f"[pack] ops.pack over {len(layer_w)} weights of a {SERVE_MODELS[0]} "
         f"layer in f32 and bf16: {sum(pack_shapes.values())} launches, each "
-        f"bit-exact against layout_pack_ref and unpacked back exactly")
+        f"bit-exact against layout_pack_ref and unpacked back exactly; the "
+        f"pass: kernel cold {pass_ms['cold_device_ms']:.4f} ms "
+        f"({pass_ms['bound_ms'] / pass_ms['cold_device_ms']:.1%} of its "
+        f"{pass_ms['bound_ms']:.4f} ms bound), warm "
+        f"{pass_ms['warm_device_ms']:.4f} ms; the library cold "
+        f"{pass_ms['library_cold_device_ms']:.4f} ms, warm "
+        f"{pass_ms['library_warm_device_ms']:.4f} ms; a plain copy of the "
+        f"same bytes cold {pass_ms['copy_cold_device_ms']:.4f} ms")
 
     # ---- 9. summary -------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
@@ -1690,7 +1839,7 @@ def main() -> int:
         mean = {f: sum(measured[s][f] * c for s, c in weights.items()) / total
                 for f in ("ms", "plain_ms", "bound_ms", "device_ms")}
 
-        def lib_mean(f):
+        def mean_of(f):
             lib = [measured[s].get(f) for s in weights]
             return None if None in lib else sum(
                 measured[s][f] * c for s, c in weights.items()) / total
@@ -1703,13 +1852,18 @@ def main() -> int:
             "max_abs_err": max(measured[s]["max_abs_err"] for s in weights),
             "ms": mean["ms"], "plain_ms": mean["plain_ms"],
             "bound_ms": mean["bound_ms"], "bound_by": by.most_common(1)[0][0],
-            "library_ms": lib_mean("library_ms"),
+            "library_ms": mean_of("library_ms"),
             "device_ms": mean["device_ms"],
-            "library_device_ms": lib_mean("library_device_ms"),
+            "library_device_ms": mean_of("library_device_ms"),
             "per_shape": [{"shape": [str(v) if isinstance(v, torch.dtype)
                                      else v for v in s[1]],
                            "launches": c, **measured[s]}
                           for s, c in sorted(weights.items(), key=str)]})
+        if kn == "layout_pack":
+            kernels[-1].update({f: mean_of(f) for f in (
+                "warm_device_ms", "cold_device_ms", "library_warm_device_ms",
+                "library_cold_device_ms", "copy_warm_device_ms",
+                "copy_cold_device_ms")})
     log("kernels: " + " ".join(
         f"{k['name']}=ok ({k['launches']} launches, one call {k['ms']:.4f} ms"
         + (f" = {k['ms'] / k['library_ms']:.3f}x the library"

@@ -241,7 +241,23 @@ SSD_SHAPES = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 32, 16, 64),
               (2, 512, 3, 64, 128, 256), (1, 512, 25, 64, 128, 256),
               (1, 4096, 3, 16, 8, 64)]
 PACK_CASES = [(64, 256), (70, 300), (128, 384), (8, 128), (33, 129),
-              (2048, 8192)]
+              (2048, 8192), (8192, 2048)]
+# the boundaries of the kernel's two paths (``pack_plan``): (R, C), dtype,
+# tile (None: the native one), bytes the input starts past a 16-byte
+# boundary, and the path it must take
+PACK_PATH_CASES = [((70, 256), torch.float32, None, 0, "vector"),
+                   ((33, 129), torch.float32, None, 0, "general"),
+                   ((33, 129), torch.bfloat16, None, 0, "general"),
+                   ((64, 96), torch.float32, (8, 64), 0, "general"),
+                   ((48, 96), torch.float32, (5, 12), 0, "vector"),
+                   ((40, 96), torch.float32, (5, 6), 0, "general"),
+                   ((40, 256), torch.uint8, None, 0, "vector"),
+                   ((40, 256), torch.int64, None, 0, "vector"),
+                   ((40, 256), torch.uint8, (8, 100), 0, "general"),
+                   ((64, 256), torch.float32, None, 4, "general"),
+                   ((64, 256), torch.bfloat16, None, 2, "general"),
+                   ((8192, 2048), torch.float32, None, 0, "vector"),
+                   ((8192, 2048), torch.bfloat16, None, 0, "vector")]
 
 
 def _ssd_inputs(rng, b, s, h, p, n, dev):
@@ -423,6 +439,36 @@ def test_layout_pack_kernel_bit_exact(dev, r, c, dtype):
     assert torch.equal(got.view(bits), want.view(bits))
     assert torch.equal(odd.view(bits),
                        ref.layout_pack_ref(w, (5, 24)).view(bits))
+    assert torch.equal(ops.unpack(got, (r, c)), w)
+
+
+@pytest.mark.parametrize("shape,dtype,tile,skew,path", PACK_PATH_CASES)
+def test_layout_pack_paths_bit_exact(dev, shape, dtype, tile, skew, path):
+    """Each side of each boundary of the kernel's two paths, bit for bit
+    against the plain version; the input starts ``skew`` bytes past a
+    16-byte boundary, and ``pack_plan`` sends it down ``path``."""
+    from repro_torch.kernels.layout_pack import layout_pack, pack_plan
+    r, c = shape
+    rng = np.random.default_rng(r + c + skew)
+    n = r * c + skew // dtype.itemsize
+    if dtype.is_floating_point:
+        flat = _normal(rng, (n,)).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        flat = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                             endpoint=True)).to(dtype)
+    w = flat.to(dev)[skew // dtype.itemsize:].view(r, c)
+    assert w.data_ptr() % 16 == skew
+    tile = tile or ops.native_tile(dtype)
+    got = layout_pack(w, tile)
+    torch.cuda.synchronize()
+    plan = pack_plan(r, c, *tile, dtype.itemsize, w.data_ptr(),
+                     got.data_ptr())
+    assert plan.path == path
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[dtype.itemsize]
+    assert torch.equal(got.view(bits),
+                       ref.layout_pack_ref(w, tile).view(bits))
     assert torch.equal(ops.unpack(got, (r, c)), w)
 
 

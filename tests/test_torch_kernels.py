@@ -233,3 +233,61 @@ def test_tc_attention_p_split_keeps_16_bits():
     rel = ((hi + lo - p).abs() / p).max().item()
     assert rel <= 2 ** -16
     assert ((hi - p).abs() / p).max().item() > 2 ** -10
+
+
+# (R, C, tr, tc, itemsize, bytes the input and the output start past a
+# 16-byte boundary, the path): the native tiles, row padding, column
+# padding, runs that are not whole vectors, short runs of whole vectors,
+# 1- and 8-byte elements and misaligned pointers
+PLAN_PACK_CASES = [
+    (2048, 8192, 8, 128, 4, 0, 0, "vector"),
+    (8192, 2048, 16, 128, 2, 0, 0, "vector"),
+    (70, 256, 8, 128, 4, 0, 0, "vector"),
+    (33, 129, 8, 128, 4, 0, 0, "general"),
+    (33, 129, 16, 128, 2, 0, 0, "general"),
+    (64, 96, 8, 64, 4, 0, 0, "general"),
+    (48, 96, 5, 12, 4, 0, 0, "vector"),
+    (40, 96, 5, 6, 4, 0, 0, "general"),
+    (40, 256, 8, 128, 1, 0, 0, "vector"),
+    (40, 256, 8, 128, 8, 0, 0, "vector"),
+    (64, 256, 8, 128, 4, 4, 0, "general"),
+    (64, 256, 8, 128, 4, 0, 8, "general")]
+
+
+@pytest.mark.parametrize("r,c,tr,tc,size,w_off,out_off,path",
+                         PLAN_PACK_CASES)
+def test_pack_plan_path_and_cover(r, c, tr, tc, size, w_off, out_off,
+                                  path):
+    """``pack_plan`` picks the vector path exactly when the tiles divide
+    C, a tile row is whole 16-byte vectors and both pointers are 16-byte
+    aligned, whatever R is; and the grid it gives walks every unit of the
+    padded output exactly once (a thread per vector, or a warp per run with
+    its lanes over the run's units), as the kernel walks any grid: also
+    one of 3 blocks, which walks the output with a stride."""
+    from repro_torch.kernels import layout_pack as lp
+    base = 1 << 20
+    plans = [lp.pack_plan(rr, c, tr, tc, size, base + w_off,
+                          2 * base + out_off) for rr in (r, 1, r + 1, 3 * r)]
+    assert {p.path for p in plans} == {path}
+    assert path == ("vector" if c % tc == 0 and tc * size % 16 == 0
+                    and w_off % 16 == 0 and out_off % 16 == 0 else "general")
+    out_bytes = -(-r // tr) * tr * -(-c // tc) * tc * size
+    for plan in (plans[0], plans[0]._replace(blocks=3)):
+        assert plan.units * plan.unit_bytes == out_bytes
+        assert plan.unit_bytes == (16 if path == "vector" else size)
+        assert plan.run * plan.unit_bytes == tc * size
+        assert plan.threads == lp.THREADS and plan.blocks >= 1
+        walked = np.zeros(plan.units, np.int64)
+        if plan.walk == "thread":
+            assert lp.THREADS % plan.run == 0
+            step = plan.blocks * plan.threads
+            for k in range(0, plan.units, step):
+                walked[k:k + step] += 1
+        else:
+            warps = plan.blocks * plan.threads // 32
+            for w in range(warps):
+                for q in range(w, plan.units // plan.run, warps):
+                    for lane in range(32):
+                        walked[q * plan.run + lane:(q + 1) * plan.run:32] \
+                            += 1
+        assert (walked == 1).all()

@@ -147,6 +147,46 @@ def test_pack_matches_jax_pallas_bit_exact(r, c, dtype):
                        _bits(_to_port(jax_ref.layout_pack_ref(wj, (4, 32)))))
 
 
+# the shapes of the CUDA pack's path boundaries (row padding on the vector
+# path, column padding, runs that are not whole or are short runs of
+# 16-byte vectors, 1-byte elements), with their tiles
+PACK_PATH_CASES = [(70, 256, "float32", (8, 128)),
+                   (33, 129, "float32", (8, 128)),
+                   (33, 129, "bfloat16", (16, 128)),
+                   (64, 96, "float32", (8, 64)),
+                   (48, 96, "float32", (5, 12)),
+                   (40, 96, "float32", (5, 6)),
+                   (40, 256, "uint8", (8, 128)),
+                   (40, 256, "int16", (16, 128))]
+
+
+@pytest.mark.parametrize("r,c,dtype,tile", PACK_PATH_CASES)
+def test_pack_ref_matches_jax_at_path_boundaries(r, c, dtype, tile):
+    """The plain version the CUDA kernel is held to, bit for bit, against
+    the Pallas kernel (interpret mode) and the JAX reference at each
+    boundary case's shape and tile."""
+    from repro.kernels.layout_pack import layout_pack as jax_layout_pack
+    rng = np.random.default_rng(r * c)
+    if dtype in ("float32", "bfloat16"):
+        w = rng.standard_normal((r, c)).astype(np.float32)
+        wj = jnp.asarray(w).astype(JAX_DT[dtype])
+        wt = torch.from_numpy(w).to(TORCH_DT[dtype])
+    else:
+        info = np.iinfo(dtype)
+        w = rng.integers(info.min, info.max, (r, c), dtype=dtype,
+                         endpoint=True)
+        wj, wt = jnp.asarray(w), torch.from_numpy(w)
+    got = ref.layout_pack_ref(wt, tile)
+    assert got.dtype == wt.dtype
+    raw = got.view(torch.uint8).numpy()
+    for want in (jax_layout_pack(wj, tile=tile, interpret=True),
+                 jax_ref.layout_pack_ref(wj, tile)):
+        want = np.asarray(want)
+        assert want.shape == tuple(got.shape)
+        np.testing.assert_array_equal(raw, want.view(np.uint8))
+    assert torch.equal(ref.layout_unpack_ref(got, (r, c)), wt)
+
+
 # ---------------------------------------------------------------------------
 # spec trees and parameters
 # ---------------------------------------------------------------------------
