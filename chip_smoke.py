@@ -31,6 +31,18 @@ executors, then drives each path through the port's own entry points:
   one more under the profiler, the kernel at that shape against its plain
   version, its tensor-core bound and bf16 SDPA, and decode at batch 8
   over a 4096-slot KV cache;
+* the MoE model path: Qwen3-30B-A3B (full width, all 48 layers, 128
+  experts top-8, bf16, random weights drawn on the card layer by layer
+  from a seed) through the same entry points: prefill through the kernel
+  against prefill through its plain version with the share of routes
+  that agree, and decode from the zero cache against prefill (2 x 256 at
+  capacity factor E / k), three prefill requests of 2 x 4096 tokens (a
+  bf16 ``flash_attention`` in every layer) with the share of dropped
+  assignments, one more under the profiler (``flash_attention``, the
+  expert products, the other matmuls, the rest by kernel name, the idle
+  share), decode at batch 8 over a 4096-slot KV cache, and layer 0's MoE
+  block alone: gather against the plain dense mode and two gather runs
+  bit for bit equal;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
 
@@ -79,6 +91,7 @@ numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -87,7 +100,6 @@ import sys
 import threading
 import time
 from collections import Counter
-from contextlib import contextmanager
 from unittest import mock
 from dataclasses import replace
 from pathlib import Path
@@ -111,6 +123,7 @@ BUDGET_MB = 2048
 TIMED = 20          # timed calls (per round), after 3 untimed ones
 ROUNDS = 5          # rounds of back-to-back calls per device-time median
 FLUSH_BYTES = 256 << 20   # scratch written before each cold-L2 call
+TRACES = 3          # profiler traces a kernel timing may take (see there)
 # profiler names of the flush's device work: fill_, and amax, which
 # clears its reduction's semaphores with a memset before its kernel
 FLUSH_KERNELS = re.compile(r"FillFunctor|reduce_kernel|Memset")
@@ -148,6 +161,30 @@ DENSE_DECODE_BATCH, DENSE_DECODE_STEPS = 8, 16
 # the checks allow about twice that
 DENSE_LOGIT_ATOL = 0.2
 DENSE_LOGIT_REL_L2 = 0.05
+MOE = "qwen3-moe-30b-a3b"
+MOE_BATCH, MOE_SEQ, MOE_REQUESTS = 2, 4096, 3
+MOE_DECODE_BATCH, MOE_DECODE_STEPS = 8, 16
+MOE_BLOCK_SEQ = 256
+MOE_STAGES = ("_router", "_dispatch_group", "_expert_ffn", "_combine_group")
+# Qwen3-30B-A3B logits (up to about 5.5 with these random weights) of two
+# runs that differ in attention's f32 summation order (kernel vs plain
+# version) or of decode step by step vs prefill (2 x 256, 48 layers,
+# capacity E / k so that prefill drops nothing). Beside one-ulp residuals,
+# near-tied routes flip between the two runs (about a quarter of the
+# slots by layer 47) and each flip moves its token by a whole expert's
+# share. On an H100 80GB HBM3 at 700 W (seed 5) the two checks read 0.285
+# and 0.242 max abs, 5.4% and 5.1% relative L2; over seeds 5-8
+# (tools/moe_consistency_seeds.py) at most 0.354 and 5.7%. The checks
+# allow 1.7x and 2.1x that
+MOE_LOGIT_ATOL = 0.6
+MOE_LOGIT_REL_L2 = 0.12
+# the MoE block of layer 0 at 1 x 256 (capacity E / k, outputs up to
+# about 1.2): gather against the plain dense mode, the same products on
+# the same rows summed in another order, read 3.9e-3 max abs (one bf16
+# ulp) and 2.7e-5 relative L2 on that card; one route in a thousand
+# wrong would move the relative L2 past 1e-3
+MOE_BLOCK_ATOL = 1e-2
+MOE_BLOCK_REL_L2 = 1e-3
 # a bf16 flash_attention output against its plain version: both round an
 # f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
 # above a floor for outputs near zero; the rounding alone gives a relative
@@ -242,33 +279,39 @@ def kernel_device_ms(fn, *, cold: bool, n: int = TIMED) -> float:
     it, so the lines it leaves are clean and no write-back of the flush
     falls into the timed kernel; the flush's kernels are told apart by
     name (``FLUSH_KERNELS``). In a long process a trace has been seen to
-    lose some activities, so the median is over the launches it kept, at
-    least half of them."""
+    lose some or all of its activities, so the median is over the
+    launches it kept, at least half of them, and a trace that kept fewer
+    is taken again, up to ``TRACES`` traces in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     scratch = torch.empty(FLUSH_BYTES // 4 if cold else 0, device="cuda")
-    events = []
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: events.extend(
-                     (ev.name, ev.time_range.elapsed_us())
-                     for ev in p.events()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA)
-                 ) as prof:
-        for _ in range(2):
-            time.sleep(0.01)
-            for _ in range(n):
-                if cold:
-                    scratch.fill_(1.0)
-                    scratch[: scratch.numel() // 2].amax()
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.01)
-            prof.step()
+    for _ in range(TRACES):
+        events = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: events.extend(
+                         (ev.name, ev.time_range.elapsed_us())
+                         for ev in p.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+                     ) as prof:
+            for _ in range(2):
+                time.sleep(0.01)
+                for _ in range(n):
+                    if cold:
+                        scratch.fill_(1.0)
+                        scratch[: scratch.numel() // 2].amax()
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+                prof.step()
+        kernels = Counter(name for name, _ in events
+                          if not FLUSH_KERNELS.search(name))
+        if sum(kernels.values()) >= n // 2:
+            break
+        log(f"[timing] a trace kept {dict(kernels)} of {n} calls; traced "
+            f"again")
     del scratch
-    kernels = Counter(name for name, _ in events
-                      if not FLUSH_KERNELS.search(name))
     check(len(kernels) == 1,
           f"kernel timing: the calls launched {dict(kernels)}")
     (name, count), = kernels.items()
@@ -477,7 +520,7 @@ def pack_input(r: int, c: int, dtype: torch.dtype, skew: int, gen,
     return flat.to(dev)[skew // dtype.itemsize:].view(r, c)
 
 
-@contextmanager
+@contextlib.contextmanager
 def eviction_log():
     """Records the weight pool's evictions in order while it is open, as
     (request, thread, model of the evicted entry): ``request`` counts the
@@ -527,6 +570,489 @@ def by_kernel(shapes: Counter) -> Counter:
     for (kn, _), c in shapes.items():
         out[kn] += c
     return out
+
+
+def close(got, want, atol, rtol, what) -> float:
+    """Max abs error of ``got`` against ``want``, checked against ``atol``
+    and ``rtol``."""
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+    check(ok and math.isfinite(err), f"{what}: max abs err {err:.3e} "
+          f"beyond atol={atol} rtol={rtol}")
+    return err
+
+
+def logits_close(got, want, what, atol=LOGIT_ATOL, rel_l2=LOGIT_REL_L2):
+    """Max abs and relative L2 error of two runs' logits, checked against
+    ``atol`` and ``rel_l2``."""
+    err = close(got, want, atol, 0.0, what)
+    rel = ((got - want).norm() / want.norm()).item()
+    check(rel <= rel_l2, f"{what}: relative L2 error {rel:.3e} beyond "
+          f"{rel_l2}")
+    return err, rel
+
+
+def flash_key(cfg, batch: int, seq: int) -> tuple:
+    """The bf16 ``flash_attention`` launch key of one prefill layer."""
+    return ("flash_attention", (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, True, 0,
+                                torch.bfloat16))
+
+
+def counted() -> Counter:
+    """The port's kernel launches since the last reset, by (kernel, key)."""
+    from repro_torch.kernels import ops
+    return Counter({(kn, key): c for kn, by_shape in
+                    ops.launch_counts_by_shape().items()
+                    for key, c in by_shape.items()})
+
+
+def draw_by_layer(specs, gen: torch.Generator, dev) -> dict:
+    """Parameters of ``specs`` drawn on ``dev`` from ``gen``, the stacked
+    ``blocks`` one layer at a time: ``init_params`` draws each leaf in f32
+    before the cast, and a stacked expert leaf of Qwen3-30B-A3B would need
+    a 38.6 GB f32 temporary. Each stacked bf16 leaf is allocated first and
+    layer i is filled from ``init_params`` on the per-layer specs."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer
+    params = shd.init_params({k: v for k, v in specs.items()
+                              if k != "blocks"}, gen, dev)
+    blocks = shd.spec_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                device=dev), specs["blocks"])
+    layer_specs = transformer.strip_layer_axis(specs["blocks"])
+    n_layers = shd.tree_leaves(blocks)[0].shape[0]
+    for i in range(n_layers):
+        shd.tree_map(lambda dst, src: dst[i].copy_(src), blocks,
+                     shd.init_params(layer_specs, gen, dev))
+    params["blocks"] = blocks
+    return params
+
+
+@contextlib.contextmanager
+def moe_recording():
+    """While open, each MoE block's expert ids [T, k] and ``dropped_frac``
+    (device tensors, in call order: layer by layer, step by step) land in
+    the two lists it yields."""
+    from repro_torch.models import moe as moe_mod
+    routes, dropped = [], []
+    router, apply = moe_mod._router, moe_mod.apply_moe
+
+    def recorded_router(*a):
+        out = router(*a)
+        routes.append(out[1])
+        return out
+
+    def recorded_apply(*a, **kw):
+        y, aux = apply(*a, **kw)
+        dropped.append(aux["dropped_frac"])
+        return y, aux
+    with mock.patch.object(moe_mod, "_router", recorded_router), \
+            mock.patch.object(moe_mod, "apply_moe", recorded_apply):
+        yield routes, dropped
+
+
+def route_agreement(a: torch.Tensor, b: torch.Tensor, n_experts: int):
+    """Two runs' expert ids [..., k]: the share of slots with the same id,
+    and the share of each token's k experts that both runs chose."""
+    slots = (a == b).float().mean()
+    chosen = [torch.zeros((*t.shape[:-1], n_experts), dtype=torch.bool,
+                          device=t.device).scatter_(-1, t, True)
+              for t in (a, b)]
+    sets = (chosen[0] & chosen[1]).sum(-1).float().mean() / a.shape[-1]
+    return slots.item(), sets.item()
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """While open, each call of the MoE layer's four stages (``_router``,
+    ``_dispatch_group``, ``_expert_ffn``, ``_combine_group``) runs in a
+    profiler range of its name, so a profile can read each stage's device
+    time."""
+    from repro_torch.models import moe as moe_mod
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+    with contextlib.ExitStack() as stack:
+        for name in MOE_STAGES:
+            stack.enter_context(mock.patch.object(
+                moe_mod, name, ranged(name, getattr(moe_mod, name))))
+        yield
+
+
+def profile_split(prof, wall_s: float) -> tuple:
+    """A profiler run over the CPU and the card, as ms of kernel time:
+    ``flash_attention`` (by kernel name), the kernels of ``aten::bmm`` (the
+    MoE layer's expert products; attention's products in decode), those of
+    ``aten::mm`` (the projections, the router, the head) and the rest; the
+    kernel time of each MoE stage of ``moe_ranges`` (its products
+    included; 0 without MoE blocks); the rest's kernels by name; the kernel
+    total; and the compute stream's idle share of ``wall_s``. A stage's
+    range also shows as a span on the device (the profiler's annotation,
+    no kernel): it is left out of the kernels."""
+    kernels, ops_ = Counter(), Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key not in MOE_STAGES:
+                kernels[ev.key] += ev.self_device_time_total / 1e3
+        elif ev.key in ("aten::bmm", "aten::mm") + MOE_STAGES:
+            ops_[ev.key] += ev.device_time_total / 1e3
+    busy = sum(kernels.values())
+    flash = sum(ms_ for k, ms_ in kernels.items()
+                if "flash_tc_kernel" in k or "flash_kernel" in k)
+    split = {"flash_attention": flash, "bmm": ops_["aten::bmm"],
+             "mm": ops_["aten::mm"],
+             "rest": busy - flash - ops_["aten::bmm"] - ops_["aten::mm"]}
+    rest = Counter({k: ms_ for k, ms_ in kernels.items()
+                    if "flash" not in k and not MATMUL_NAMES.search(k)})
+    return (split, {n: ops_[n] for n in MOE_STAGES}, rest, busy,
+            1 - busy / 1e3 / wall_s)
+
+
+def profiled_call(fn, ranges=contextlib.nullcontext) -> tuple:
+    """One call of ``fn`` under the profiler (the CPU and the card) with
+    ``ranges`` open: its wall in s, then ``profile_split``'s readings."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with ranges(), profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (wall, *profile_split(prof, wall))
+
+
+def consistency(name: str, arch, params, gen, dev, env, atol: float,
+                rel_l2: float, record=contextlib.nullcontext) -> dict:
+    """At CONSIST_BATCH x CONSIST_SEQ over all of ``arch``'s layers:
+    prefill through ``flash_attention`` (one launch a layer) against the
+    same prefill through its plain version, then decode step by step from
+    the zero cache (no launch) against the prefill, both logits within
+    ``atol`` max abs and ``rel_l2`` relative L2. ``record`` wraps each of
+    the three runs; what it yields comes back under ``kernel``, ``plain``
+    and ``decode``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    cfg = arch.model
+    cpre = model.make_step_bundle(arch, ShapeConfig(
+        "prefill", CONSIST_SEQ, CONSIST_BATCH, "prefill"), env)
+    cdec = model.make_step_bundle(arch, ShapeConfig(
+        "decode", CONSIST_SEQ, CONSIST_BATCH, "decode"), env)
+    prompt = torch.randint(0, cfg.vocab, (CONSIST_BATCH, CONSIST_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    ops.reset_launch_counts()
+    with record() as kernel_rec:
+        want = cpre.fn(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+    check(counted() == Counter({flash_key(cfg, CONSIST_BATCH, CONSIST_SEQ):
+                                cfg.num_layers}),
+          f"consistency prefill launches {dict(counted())}")
+    with record() as plain_rec, \
+            mock.patch.object(ops, "attention", ref.flash_attention_ref):
+        plain_out = cpre.fn(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+    plain_err, plain_rel = logits_close(
+        want, plain_out, f"{name} prefill through flash_attention vs "
+        f"through its plain version", atol, rel_l2)
+    same_argmax = int((want.argmax(-1) == plain_out.argmax(-1)).sum())
+    del plain_out
+    cache = shd.init_params(cdec.arg_specs[1], gen, dev)          # zeros
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with record() as decode_rec:
+        for t in range(CONSIST_SEQ):
+            got, cache = cdec.fn(params, cache, prompt[:, t:t + 1],
+                                 torch.full((CONSIST_BATCH,), t,
+                                            dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    consist_err, consist_rel = logits_close(
+        got, want, f"{name} decode from the zero cache vs prefill", atol,
+        rel_l2)
+    return {"want": want, "got": got, "plain_err": plain_err,
+            "plain_rel": plain_rel, "same_argmax": same_argmax,
+            "consist_err": consist_err, "consist_rel": consist_rel,
+            "decode_s": decode_s, "kernel": kernel_rec, "plain": plain_rec,
+            "decode": decode_rec}
+
+
+def prefill_requests(name: str, cfg, pre, params, gen, dev, n: int,
+                     batch: int, seq: int,
+                     record=contextlib.nullcontext) -> dict:
+    """``n`` prefill requests of ``batch`` x ``seq`` tokens through the
+    bundle ``pre``: each request's wall and what ``record`` yielded around
+    it, finite logits, and the launches by (kernel, key), exactly one bf16
+    ``flash_attention`` a layer. Returns those and the last request's
+    tokens."""
+    from repro_torch.kernels import ops
+    requests = [torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(n)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls, recs = [], []
+    for toks in requests:
+        with record() as rec:
+            t0 = time.perf_counter()
+            out = pre.fn(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        recs.append(rec)
+        check(tuple(out.shape) == (batch, 1, cfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              f"{name} prefill logits {tuple(out.shape)} not finite")
+    shapes = counted()
+    key = flash_key(cfg, batch, seq)
+    check(shapes == Counter({key: cfg.num_layers * n}),
+          f"prefill launches {dict(shapes)}, expected {cfg.num_layers} a "
+          f"request at {key}")
+    return {"walls": walls, "records": recs, "shapes": shapes,
+            "last": requests[-1]}
+
+
+def decode_run(name: str, arch, params, gen, dev, env, batch: int,
+               seq: int, steps: int, ranges=contextlib.nullcontext) -> dict:
+    """Decode at ``batch`` over a cache of ``seq`` slots, the last
+    ``steps`` positions, each step's pick fed back: each step's wall, no
+    kernel launch and finite logits; then one more step under
+    ``profiled_call``. Returns the walls, the cache and that profile."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    cfg = arch.model
+    dec = model.make_step_bundle(arch, ShapeConfig("decode", seq, batch,
+                                                   "decode"), env)
+    cache = shd.init_params(dec.arg_specs[1], gen, dev)           # zeros
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ops.reset_launch_counts()
+    walls = []
+    for t in range(seq - steps, seq):
+        t0 = time.perf_counter()
+        out, cache = dec.fn(params, cache, tok, torch.full(
+            (batch,), t, dtype=torch.int32, device=dev))
+        tok = out.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(sum(ops.launch_counts().values()) == 0,
+          f"decode launched kernels: {ops.launch_counts()}")
+    check(tuple(out.shape) == (batch, 1, cfg.vocab)
+          and bool(torch.isfinite(out).all()),
+          f"{name} decode logits not finite")
+    pos = torch.full((batch,), seq - 1, dtype=torch.int32, device=dev)
+    prof = profiled_call(lambda: dec.fn(params, cache, tok, pos), ranges)
+    return {"walls": walls, "cache": cache, "profile": prof}
+
+
+def ms_list(split: dict) -> str:
+    """A ``profile_split`` split as text."""
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+
+
+def stage_list(stages: dict) -> str:
+    return ", ".join(f"{k.strip('_')} {v:.3f} ms" for k, v in stages.items())
+
+
+def moe_arch_at_full_capacity(arch):
+    """``arch`` with capacity factor E / k: the capacity is then at least
+    the row length, so a prefill drops nothing and decode can be held to
+    it."""
+    m = arch.model.moe
+    return replace(arch, model=replace(arch.model, moe=replace(
+        m, capacity_factor=m.n_experts / m.top_k)))
+
+
+def moe_consistency(name: str, arch, params, gen, dev, env) -> dict:
+    """``consistency`` of an MoE model at capacity E / k with each layer's
+    routes recorded: no assignment dropped in any run, the share of routes
+    that agree between the kernel's and the plain prefill and between
+    decode and prefill (by slot and by chosen expert), logged."""
+    carch = moe_arch_at_full_capacity(arch)
+    cfg, m = carch.model, carch.model.moe
+    n_layers = cfg.num_layers
+    r = consistency(name, carch, params, gen, dev, env, MOE_LOGIT_ATOL,
+                    MOE_LOGIT_REL_L2, moe_recording)
+    (kernel_routes, k_drop), (plain_routes, _), (decode_routes, d_drop) = \
+        r["kernel"], r["plain"], r["decode"]
+    check(len(k_drop) == n_layers and float(torch.stack(k_drop).max())
+          == 0.0, "the prefill at capacity E / k dropped assignments")
+    check(float(torch.stack(d_drop).max()) == 0.0, "decode dropped")
+    agree = [route_agreement(a, b, m.n_experts)
+             for a, b in zip(kernel_routes, plain_routes)]
+    slots, sets = route_agreement(torch.stack(kernel_routes),
+                                  torch.stack(plain_routes), m.n_experts)
+    # decode's routes of token t in layer l against the prefill's
+    dec_slots, dec_sets = route_agreement(
+        torch.stack(decode_routes).view(CONSIST_SEQ, n_layers,
+                                        CONSIST_BATCH, m.top_k),
+        torch.stack(kernel_routes).view(n_layers, CONSIST_BATCH, CONSIST_SEQ,
+                                        m.top_k).permute(2, 0, 1, 3),
+        m.n_experts)
+    want, got = r["want"], r["got"]
+    log(f"[moe] prefill {CONSIST_BATCH} x {CONSIST_SEQ} at capacity factor "
+        f"{m.capacity_factor} (dropped 0 in every layer) through "
+        f"flash_attention vs through flash_attention_ref: routes (token, "
+        f"layer, slot) agree {slots:.4%} (the least layer "
+        f"{min(a[0] for a in agree):.4%}, layer 0 {agree[0][0]:.4%}), "
+        f"each token's chosen experts {sets:.4%} (the least layer "
+        f"{min(a[1] for a in agree):.4%}); logits "
+        f"max abs err {r['plain_err']:.3e} (atol {MOE_LOGIT_ATOL}), relative "
+        f"L2 {r['plain_rel']:.3e} (<= {MOE_LOGIT_REL_L2}), |logits| up to "
+        f"{want.abs().max().item():.3f}, same argmax in "
+        f"{r['same_argmax']}/{CONSIST_BATCH} rows")
+    log(f"[moe] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
+        f"the zero cache ({r['decode_s']:.3f} s, no kernel launch, dropped "
+        f"0) vs prefill: routes agree {dec_slots:.4%} by slot, "
+        f"{dec_sets:.4%} by chosen expert; logits max abs err "
+        f"{r['consist_err']:.3e} (atol {MOE_LOGIT_ATOL}), relative L2 "
+        f"{r['consist_rel']:.3e}; decode picks "
+        f"{got.argmax(-1).flatten().tolist()}, prefill "
+        f"{want.argmax(-1).flatten().tolist()}. At the config's own "
+        f"capacity factor {arch.model.moe.capacity_factor} a prefill drops "
+        f"assignments that decode (one token a row, 8 slots an expert) "
+        f"keeps, by the reference's own semantics, so this check runs at "
+        f"E / k")
+    return {k: r[k] for k in ("plain_err", "plain_rel", "consist_err",
+                              "consist_rel")} | {"slots": slots,
+                                                 "dec_slots": dec_slots}
+
+
+def moe_phase(dev, env, smi: str) -> dict:
+    """Phase 7c: Qwen3-30B-A3B (full width, all 48 layers, bf16, random
+    weights drawn on the card from a seed) through ``make_step_bundle``.
+    Returns the launches of its prefill requests by (kernel, key) and its
+    checks' errors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_mod
+
+    t_phase = time.perf_counter()
+    arch = get_arch(MOE)
+    cfg, m = arch.model, arch.model.moe
+    n_layers = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    pre = model.make_step_bundle(arch, ShapeConfig(
+        "prefill", MOE_SEQ, MOE_BATCH, "prefill"), env)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    params = draw_by_layer(pre.arg_specs[0], gen, dev)
+    torch.cuda.synchronize()
+    log(f"[moe] {smi}: {MOE}: {n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, {m.n_experts} experts of width {m.d_ff}, "
+        f"top-{m.top_k}, capacity factor {m.capacity_factor}, vocab "
+        f"{cfg.vocab}, bf16; {shd.param_count(pre.arg_specs[0]) / 1e9:.3f}B "
+        f"parameters ({shd.param_bytes(pre.arg_specs[0]) / 1e9:.2f} GB) "
+        f"drawn on {dev} layer by layer in {time.perf_counter() - t0:.2f}s "
+        f"({before / 1e9:.2f} GB allocated before them); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # (b) full width, all layers, 2 x 256, at capacity factor E / k
+    errs = moe_consistency("Qwen3", arch, params, gen, dev, env)
+
+    # (c) prefill requests of MOE_BATCH x MOE_SEQ tokens at the config's
+    # capacity factor, then one more under the profiler with each MoE
+    # stage (router, dispatch, expert FFN, combine) in a range of its own
+    req = prefill_requests("Qwen3", cfg, pre, params, gen, dev, MOE_REQUESTS,
+                           MOE_BATCH, MOE_SEQ, moe_recording)
+    walls, shapes = req["walls"], req["shapes"]
+    drops = [torch.stack(dropped) for _, dropped in req["records"]]
+    tokens_req = MOE_BATCH * MOE_SEQ
+    log(f"[moe] {smi}: prefill {MOE_REQUESTS} requests of {MOE_BATCH} x "
+        f"{MOE_SEQ} tokens: wall {', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
+        f"dropped_frac (mean over the layers) "
+        f"{', '.join(f'{d.mean().item():.4f}' for d in drops)}, by layer in "
+        f"request 0 {[round(d, 3) for d in drops[0].tolist()]}; launches "
+        f"{dict(shapes)} ({n_layers} a request); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    prof_wall, split, stages, rest, busy, idle = profiled_call(
+        lambda: pre.fn(params, {"tokens": req["last"]}), moe_ranges)
+    check(split["flash_attention"] > 0 and split["bmm"] > 0,
+          f"the profiler saw no flash_attention or expert products in a "
+          f"prefill: {split}")
+    warm = min(walls[1:])
+    log(f"[moe] {smi}: profiled prefill of {MOE_BATCH} x {MOE_SEQ}: wall "
+        f"{prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device time "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in split.items())
+        + f" (bmm: the expert products; mm: the projections, router and "
+        f"head); compute stream busy {busy:.3f} ms, idle {idle:.1%} of the "
+        f"profiled wall ({1 - busy / 1e3 / warm:.1%} of the warm wall); by "
+        f"MoE stage (its products included) {stage_list(stages)}")
+    log(f"[moe] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(10)))
+    del req
+
+    # (d) decode at batch MOE_DECODE_BATCH over a cache of MOE_SEQ slots
+    d = decode_run("Qwen3", arch, params, gen, dev, env, MOE_DECODE_BATCH,
+                   MOE_SEQ, MOE_DECODE_STEPS, moe_ranges)
+    steps, cache = d["walls"], d["cache"]
+    step_wall, dsplit, dstages, drest, _, didle = d["profile"]
+    log(f"[moe] {smi}: decode {MOE_DECODE_STEPS} steps at batch "
+        f"{MOE_DECODE_BATCH}, cache {tuple(cache['k'].shape)} "
+        f"({cache['k'].numel() * 4 / 1e9:.2f} GB of k and v), capacity "
+        f"{moe_mod.capacity(1, m.n_experts, m.top_k, m.capacity_factor)} "
+        f"slots an expert a row: median step {np.median(steps) * 1e3:.3f} "
+        f"ms, first {steps[0] * 1e3:.3f} ms, no kernel launch; one step "
+        f"profiled: wall {step_wall * 1e3:.3f} ms, device time "
+        f"{ms_list(dsplit)}, idle {didle:.1%}; by MoE stage "
+        f"{stage_list(dstages)}; the rest's largest kernels: " + "; ".join(
+            f"{short_kernel_name(k)} {v:.3f} ms"
+            for k, v in drest.most_common(5))
+        + f"; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del d, cache
+
+    # (e) the MoE block alone on layer 0's weights at 1 x MOE_BLOCK_SEQ,
+    # capacity factor E / k: gather against the plain dense mode, and two
+    # gather runs bit for bit equal (the combine adds without atomics)
+    ccfg = moe_arch_at_full_capacity(arch).model
+    p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn((1, MOE_BLOCK_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    yg, aux = moe_mod.apply_moe(ccfg, p0, x, env, mode="gather")
+    yg2, _ = moe_mod.apply_moe(ccfg, p0, x, env, mode="gather")
+    yd, _ = moe_mod.apply_moe(ccfg, p0, x, env, mode="dense")
+    torch.cuda.synchronize()
+    check(float(aux["dropped_frac"]) == 0.0, "the block dropped")
+    check(torch.equal(bits(yg), bits(yg2)),
+          "two gather runs of the MoE block differ")
+    block_err = close(yg, yd, MOE_BLOCK_ATOL, 0.0,
+                      "MoE block gather vs dense")
+    block_rel = ((yg.float() - yd.float()).norm() / yd.float().norm()).item()
+    check(block_rel <= MOE_BLOCK_REL_L2, f"MoE block gather vs dense: "
+          f"relative L2 {block_rel:.3e} beyond {MOE_BLOCK_REL_L2}")
+    gather_ms = device_ms(lambda: moe_mod.apply_moe(ccfg, p0, x, env),
+                          n=5, rounds=3)
+    dense_ms = device_ms(lambda: moe_mod.apply_moe(ccfg, p0, x, env,
+                                                   mode="dense"),
+                         n=5, rounds=3)
+    log(f"[moe] {smi}: the MoE block of layer 0 at 1 x {MOE_BLOCK_SEQ}, "
+        f"capacity factor {ccfg.moe.capacity_factor}: gather vs dense max "
+        f"abs err {block_err:.3e} (atol {MOE_BLOCK_ATOL}), relative L2 "
+        f"{block_rel:.3e} (<= {MOE_BLOCK_REL_L2}), |y| up to "
+        f"{yd.abs().max().item():.3f}; two gather runs bit for bit equal; "
+        f"device time gather {gather_ms:.3f} ms, dense {dense_ms:.3f} ms; "
+        f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    del params, p0, x, yg, yg2, yd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "plain_err": errs["plain_err"],
+            "consist_err": errs["consist_err"], "block_err": block_err}
 
 
 def main() -> int:
@@ -593,13 +1119,6 @@ def main() -> int:
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
-
-    def close(got, want, atol, rtol, what) -> float:
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
-        check(ok and math.isfinite(err), f"{what}: max abs err {err:.3e} "
-              f"beyond atol={atol} rtol={rtol}")
-        return err
 
     def close_bf16_attention(got, want, what) -> tuple:
         """A bf16 attention output against its plain version. Both compute
@@ -1405,15 +1924,6 @@ def main() -> int:
         f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(10)))
     del prof
 
-    def logits_close(got, want, what, atol=LOGIT_ATOL, rel_l2=LOGIT_REL_L2):
-        """Max abs and relative L2 error of two runs' logits, checked
-        against ``atol`` and ``rel_l2``."""
-        err = close(got, want, atol, 0.0, what)
-        rel = ((got - want).norm() / want.norm()).item()
-        check(rel <= rel_l2, f"{what}: relative L2 error {rel:.3e} "
-              f"beyond {rel_l2}")
-        return err, rel
-
     def plain_ssd(x, dt, a, b_, c, d, *, chunk):
         return ssm_mod.ssd_chunked(x, dt, a, b_, c, d, chunk)[0]
 
@@ -1518,131 +2028,59 @@ def main() -> int:
         f"({shd.param_bytes(dpre.arg_specs[0]) / 1e9:.2f} GB) drawn on "
         f"{dev} in {time.perf_counter() - t0:.2f}s")
 
-    def fa_key(b_, s_):
-        return ("flash_attention", (b_, s_, s_, nq, nkv, dhd, True, 0,
-                                    torch.bfloat16))
-
-    def counted():
-        return Counter({(kn, key): c for kn, by_shape in
-                        ops.launch_counts_by_shape().items()
-                        for key, c in by_shape.items()})
-
     # (a) full width, all 32 layers, 2 x 256: prefill through the kernel
     # against the same prefill through its plain version, then decode step
     # by step from the zero cache against the prefill
-    cpre = model.make_step_bundle(darch, ShapeConfig(
-        "prefill", CONSIST_SEQ, CONSIST_BATCH, "prefill"), env)
-    cdec = model.make_step_bundle(darch, ShapeConfig(
-        "decode", CONSIST_SEQ, CONSIST_BATCH, "decode"), env)
-    prompt = torch.randint(0, dcfg.vocab, (CONSIST_BATCH, CONSIST_SEQ),
-                           generator=dgen, device=dev, dtype=torch.int32)
-    ops.reset_launch_counts()
-    want = cpre.fn(dparams, {"tokens": prompt})
-    torch.cuda.synchronize()
-    check(counted() == Counter({fa_key(CONSIST_BATCH, CONSIST_SEQ):
-                                dcfg.num_layers}),
-          f"consistency prefill launches {dict(counted())}")
-    with mock.patch.object(ops, "attention", ref.flash_attention_ref):
-        plain_out = cpre.fn(dparams, {"tokens": prompt})
-        torch.cuda.synchronize()
-    dense_plain_err, dense_plain_rel = logits_close(
-        want, plain_out, "Yi-6B prefill through flash_attention vs through "
-        "its plain version", DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
-    log(f"[dense] prefill {CONSIST_BATCH} x {CONSIST_SEQ} through "
-        f"flash_attention vs through flash_attention_ref: max abs err "
-        f"{dense_plain_err:.3e} (atol {DENSE_LOGIT_ATOL}), relative L2 "
-        f"{dense_plain_rel:.3e} (<= {DENSE_LOGIT_REL_L2}), |logits| up to "
-        f"{want.abs().max().item():.3f}, same argmax in "
-        f"{int((want.argmax(-1) == plain_out.argmax(-1)).sum())}/"
-        f"{CONSIST_BATCH} rows")
-    cache = shd.init_params(cdec.arg_specs[1], dgen, dev)        # zeros
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    for t in range(CONSIST_SEQ):
-        got, cache = cdec.fn(dparams, cache, prompt[:, t:t + 1], torch.full(
-            (CONSIST_BATCH,), t, dtype=torch.int32, device=dev))
-    torch.cuda.synchronize()
-    consist_s = time.perf_counter() - t0
-    check(sum(ops.launch_counts().values()) == 0,
-          f"decode launched kernels: {ops.launch_counts()}")
-    dense_consist_err, dense_consist_rel = logits_close(
-        got, want, "Yi-6B decode from the zero cache vs prefill",
-        DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
+    r = consistency("Yi-6B", darch, dparams, dgen, dev, env,
+                    DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
+    want, got = r["want"], r["got"]
+    dense_plain_err, dense_consist_err = r["plain_err"], r["consist_err"]
     pick = got.argmax(-1, keepdim=True)
     gap = (want.amax(-1, keepdim=True) - want.gather(-1, pick)).max().item()
     check(gap <= DENSE_LOGIT_ATOL, f"decode picks {pick.flatten().tolist()}"
           f", {gap:.3e} below the prefill's best logit")
+    log(f"[dense] prefill {CONSIST_BATCH} x {CONSIST_SEQ} through "
+        f"flash_attention vs through flash_attention_ref: max abs err "
+        f"{dense_plain_err:.3e} (atol {DENSE_LOGIT_ATOL}), relative L2 "
+        f"{r['plain_rel']:.3e} (<= {DENSE_LOGIT_REL_L2}), |logits| up to "
+        f"{want.abs().max().item():.3f}, same argmax in "
+        f"{r['same_argmax']}/{CONSIST_BATCH} rows")
     log(f"[dense] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
-        f"the zero cache ({consist_s:.3f} s, no kernel launch) vs prefill: "
-        f"max abs err {dense_consist_err:.3e} (atol {DENSE_LOGIT_ATOL}), "
-        f"relative L2 {dense_consist_rel:.3e}; decode picks "
-        f"{pick.flatten().tolist()}, prefill "
+        f"the zero cache ({r['decode_s']:.3f} s, no kernel launch) vs "
+        f"prefill: max abs err {dense_consist_err:.3e} (atol "
+        f"{DENSE_LOGIT_ATOL}), relative L2 {r['consist_rel']:.3e}; decode "
+        f"picks {pick.flatten().tolist()}, prefill "
         f"{want.argmax(-1).flatten().tolist()}")
-    del cache, got, want, plain_out, prompt, cpre, cdec
+    del r, want, got, pick
 
     # (b) prefill requests of DENSE_BATCH x DENSE_SEQ tokens: one bf16
-    # flash_attention per layer, at the key counted here
-    requests = [torch.randint(0, dcfg.vocab, (DENSE_BATCH, DENSE_SEQ),
-                              generator=dgen, device=dev, dtype=torch.int32)
-                for _ in range(DENSE_REQUESTS)]
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    walls = []
-    for toks in requests:
-        t0 = time.perf_counter()
-        out = dpre.fn(dparams, {"tokens": toks})
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        check(tuple(out.shape) == (DENSE_BATCH, 1, dcfg.vocab)
-              and bool(torch.isfinite(out).all()),
-              f"Yi-6B prefill logits {tuple(out.shape)} not finite")
-    dense_shapes = counted()
-    dense_key = fa_key(DENSE_BATCH, DENSE_SEQ)
-    check(dense_shapes == Counter({dense_key: dcfg.num_layers
-                                   * DENSE_REQUESTS}),
-          f"prefill launches {dict(dense_shapes)}, expected "
-          f"{dcfg.num_layers} a request at {dense_key}")
+    # flash_attention per layer, at the key counted here; then (c) one more
+    # warm prefill under the profiler (its launches are not counted above)
+    req = prefill_requests("Yi-6B", dcfg, dpre, dparams, dgen, dev,
+                           DENSE_REQUESTS, DENSE_BATCH, DENSE_SEQ)
+    walls, dense_shapes = req["walls"], req["shapes"]
+    dense_key = flash_key(dcfg, DENSE_BATCH, DENSE_SEQ)
     tokens_req = DENSE_BATCH * DENSE_SEQ
     log(f"[dense] {smi}: prefill {DENSE_REQUESTS} requests of {DENSE_BATCH} "
         f"x {DENSE_SEQ} tokens: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s, "
         f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
         f"launches {dict(dense_shapes)} ({dcfg.num_layers} a request)")
-
-    # (c) one more warm prefill under the profiler (its launches are not
-    # counted above): device time of flash_attention, of the library's
-    # matmuls (the projections, torch.matmul) and of the rest by kernel
-    # name, and the share of the wall the compute stream was idle
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dpre.fn(dparams, {"tokens": requests[-1]})
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    split, rest = Counter(), Counter()
-    for kname, ms_ in device_by_name(prof).items():
-        if "flash_kernel" in kname or "flash_tc_kernel" in kname:
-            split["flash_attention"] += ms_
-        elif MATMUL_NAMES.search(kname):
-            split["matmul"] += ms_
-        else:
-            split["rest"] += ms_
-            rest[kname] += ms_
-    busy = sum(split.values())
+    prof_wall, split, _, rest, busy, _ = profiled_call(
+        lambda: dpre.fn(dparams, {"tokens": req["last"]}))
     check(split["flash_attention"] > 0,
           "the profiler saw no flash_attention in a prefill")
     warm = min(walls[1:])
     log(f"[dense] {smi}: profiled prefill of {DENSE_BATCH} x {DENSE_SEQ}: "
         f"wall {prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device time "
-        f"flash_attention {split['flash_attention']:.3f} ms "
-        f"({split['flash_attention'] / 1e3 / warm:.1%} of the warm wall), "
-        f"matmuls {split['matmul']:.3f} ms, the rest {split['rest']:.3f} ms; "
-        f"compute stream busy {busy:.3f} ms, idle "
-        f"{1 - busy / 1e3 / prof_wall:.1%} of the profiled wall "
+        f"{ms_list(split)} (flash_attention "
+        f"{split['flash_attention'] / 1e3 / warm:.1%} of the warm wall; mm: "
+        f"the projections and the head); compute stream busy {busy:.3f} ms, "
+        f"idle {1 - busy / 1e3 / prof_wall:.1%} of the profiled wall "
         f"({1 - busy / 1e3 / warm:.1%} of the warm wall)")
     log(f"[dense] the rest by kernel: " + "; ".join(
         f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(8)))
-    del prof, requests, out
+    del req
 
     # (d) the kernel at the prefill's shape against its plain version, its
     # bound (bf16 tensor cores, where it computes), and the one PyTorch call
@@ -1665,35 +2103,10 @@ def main() -> int:
     # slots (the last DENSE_DECODE_STEPS positions): ms a step, then one
     # step under the profiler, and the cost of widening one layer's cache
     # to f32 for the f32 products (decode_attention)
-    ddec = model.make_step_bundle(darch, ShapeConfig(
-        "decode", DENSE_SEQ, DENSE_DECODE_BATCH, "decode"), env)
-    cache = shd.init_params(ddec.arg_specs[1], dgen, dev)        # zeros
-    tok = torch.randint(0, dcfg.vocab, (DENSE_DECODE_BATCH, 1),
-                        generator=dgen, device=dev, dtype=torch.int32)
-    first = DENSE_SEQ - DENSE_DECODE_STEPS
-    ops.reset_launch_counts()
-    steps = []
-    for t in range(first, DENSE_SEQ):
-        t0 = time.perf_counter()
-        out, cache = ddec.fn(dparams, cache, tok, torch.full(
-            (DENSE_DECODE_BATCH,), t, dtype=torch.int32, device=dev))
-        tok = out.argmax(-1).to(torch.int32)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-    check(sum(ops.launch_counts().values()) == 0,
-          f"decode launched kernels: {ops.launch_counts()}")
-    check(tuple(out.shape) == (DENSE_DECODE_BATCH, 1, dcfg.vocab)
-          and bool(torch.isfinite(out).all()), "decode logits not finite")
-    pos = torch.full((DENSE_DECODE_BATCH,), DENSE_SEQ - 1, dtype=torch.int32,
-                     device=dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ddec.fn(dparams, cache, tok, pos)
-        torch.cuda.synchronize()
-        step_wall = time.perf_counter() - t0
-    dsplit = Counter()
-    for kname, ms_ in device_by_name(prof).items():
-        dsplit["matmul" if MATMUL_NAMES.search(kname) else "rest"] += ms_
+    d = decode_run("Yi-6B", darch, dparams, dgen, dev, env,
+                   DENSE_DECODE_BATCH, DENSE_SEQ, DENSE_DECODE_STEPS)
+    steps, cache = d["walls"], d["cache"]
+    step_wall, dsplit, _, _, _, didle = d["profile"]
     widen_ms = device_ms(lambda: (cache["k"][0].float(),
                                   cache["v"][0].float()), n=5, rounds=3)
     dense_mem = torch.cuda.max_memory_allocated()
@@ -1702,14 +2115,20 @@ def main() -> int:
         f"({cache['k'].numel() * 4 / 1e9:.2f} GB of k and v): median step "
         f"{np.median(steps) * 1e3:.3f} ms, first {steps[0] * 1e3:.3f} ms, "
         f"no kernel launch; one step profiled: wall {step_wall * 1e3:.3f} "
-        f"ms, device time matmuls {dsplit['matmul']:.3f} ms, the rest "
-        f"{dsplit['rest']:.3f} ms, idle "
-        f"{1 - sum(dsplit.values()) / 1e3 / step_wall:.1%}; widening one "
+        f"ms, device time {ms_list(dsplit)} (bmm: attention's products "
+        f"over the cache), idle {didle:.1%}; widening one "
         f"layer's k and v to f32 {widen_ms:.3f} ms of device time "
         f"({widen_ms * dcfg.num_layers:.3f} ms over {dcfg.num_layers} "
         f"layers); max_memory_allocated {dense_mem / 1e6:.1f} MB; the "
         f"phase took {time.perf_counter() - t_dense:.1f} s")
-    del dparams, cache, out, tok, prof, dpre, ddec
+    del dparams, d, cache, dpre
+
+    # ---- 7c. Qwen3-30B-A3B through the model path (the MoE family) -------
+    moe_out = moe_phase(dev, env, smi)
+    moe_shapes = moe_out["shapes"]
+    for shape in moe_shapes:
+        if shape not in measured:
+            measure(shape)
 
     # ---- 8. ops.pack over one GPT-Neo-1.3B layer's weights ----------------
     big_cfg = get_arch(SERVE_MODELS[0]).model
@@ -1826,9 +2245,10 @@ def main() -> int:
     # ---- 9. summary -------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
     # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the Yi-6B
-    # prefill requests (phase 7b), the pack pass (phase 8)
+    # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
+    # (phase 7c), the pack pass (phase 8)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
-        dense_shapes + pack_shapes
+        dense_shapes + moe_shapes + pack_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -1875,7 +2295,10 @@ def main() -> int:
         f"{fleet_err:.2e}; Mamba-2 prefill "
         f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
         f"Yi-6B prefill vs plain {dense_plain_err:.2e}, decode vs prefill "
-        f"{dense_consist_err:.2e}; "
+        f"{dense_consist_err:.2e}; Qwen3-30B-A3B prefill vs plain "
+        f"{moe_out['plain_err']:.2e}, decode vs prefill "
+        f"{moe_out['consist_err']:.2e}, MoE block gather vs dense "
+        f"{moe_out['block_err']:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,7 @@ logical names are kept so the spec trees of the two packages match leaf for
 leaf; on one device they map to nothing, and ``MeshEnv.constrain`` returns
 its input as the JAX one does on a mesh of size 1. The multi-device rules,
 ``shard_map`` and the dry-run's shape structs wait for the mesh slice
-(``ROADMAP.md`` §1 item 12).
+(``ROADMAP.md`` §1, "Mesh and analysis").
 
 Trees are nested dicts (lists and tuples too) with specs or tensors at the
 leaves; ``spec_map`` and ``tree_map`` walk them.

@@ -1,5 +1,6 @@
 """The device env of a run. One card for now; the production meshes and the
-multi-device rules wait for the mesh slice (``ROADMAP.md`` §1 item 12)."""
+multi-device rules wait for the mesh slice (``ROADMAP.md`` §1, "Mesh and
+analysis")."""
 from __future__ import annotations
 
 from repro_torch.device import DeviceLike
@@ -13,7 +14,8 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1,
     if n_data * n_model != 1:
         raise NotImplementedError(
             f"a {n_data} x {n_model} mesh waits for the mesh slice of the "
-            f"port (ROADMAP.md §1 item 12); only 1 x 1 runs today")
+            f"port (ROADMAP.md §1, \"Mesh and analysis\"); only 1 x 1 runs "
+            f"today")
     return single_device_env(device)
 
 

@@ -107,8 +107,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not isinstance(q_offset, int) or q_offset:
         raise NotImplementedError(
             f"q_offset={q_offset!r}: a query chunk of a sequence sharded "
-            f"across devices waits for the mesh slice (ROADMAP.md §1 item "
-            f"10); one device runs with q_offset=0")
+            f"across devices waits for the mesh slice (ROADMAP.md §1, "
+            f"\"Mesh and analysis\"); one device runs with q_offset=0")
     return ops.attention(q, k, v, causal=causal, window=window)
 
 

@@ -53,7 +53,7 @@ def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# FFN (dense MLP; MoE waits for its slice)
+# FFN (dense MLP; the MoE FFN is models.moe)
 # ---------------------------------------------------------------------------
 
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None,

@@ -2,8 +2,10 @@
 its inputs, and the real tensors for tests and the smoke run.
 
 The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
-kinds of the SSM and dense families. ``train`` waits for the training
-slice and the enc-dec family for its own (``ROADMAP.md`` §1);
+kinds of the SSM, dense and MoE families (and of a dense stack whose
+``moe`` config makes its FFN an MoE block). ``train`` waits for the
+training slice, and the hybrid and enc-dec families for their own
+(``ROADMAP.md`` §1);
 ``lower_step`` is the dry-run's XLA lowering and waits with
 ``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
 (or decode cache), mapped through ``np.asarray``, into the port's tensors
@@ -25,6 +27,8 @@ from repro_torch.models import transformer
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    """The SSM, dense and MoE families run; the hybrid family raises in
+    ``transformer`` and the enc-dec family here, each naming its slice."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             "the enc-dec family (Whisper) is not ported yet; see ROADMAP.md "
@@ -102,8 +106,8 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
     in each: the block-grid schedules leave the function unchanged, and
     ``"cp"`` on one device (one model shard, the query chunk at offset 0,
     the weight and K/V gathers identities) is the ordinary prefill. Its
-    sharding across devices waits for the mesh slice (``ROADMAP.md`` §1
-    item 10)."""
+    sharding across devices waits for the mesh slice (``ROADMAP.md`` §1,
+    "Mesh and analysis")."""
     if attn_mode not in ATTN_MODES:
         raise ValueError(f"attn_mode {attn_mode!r} is not one of "
                          f"{ATTN_MODES}")

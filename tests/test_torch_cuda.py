@@ -1,5 +1,6 @@
 """The port on the card: its CUDA kernels against their plain versions, the
-copy-stream path, the executors and the Mamba-2 and dense model paths. Every test needs an NVIDIA card
+copy-stream path, the executors and the Mamba-2, dense and MoE model
+paths. Every test needs an NVIDIA card
 (``cuda`` marker) and skips without one; the file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
@@ -571,3 +572,135 @@ def test_dense_prefill_and_decode_on_the_card(dev):
     assert cpu[2] == {} and card[2] == {key: cfg.num_layers}
     for i in (0, 1):
         torch.testing.assert_close(card[i], cpu[i], atol=0.1, rtol=0)
+
+
+def _narrow_moe_cfg(**moe_kw):
+    """A narrow MoE stack at the full models' attention widths (hd 128, 8
+    query heads on 1 KV head, 2 layers) with 16 experts, top-4."""
+    from repro_torch.configs import get_arch
+    cfg = replace(get_arch("qwen3-moe-30b-a3b").model.reduced(), d_model=256,
+                  n_heads=8, n_kv_heads=1, head_dim=128, d_ff=512)
+    return replace(cfg, moe=replace(cfg.moe, n_experts=16, top_k=4, d_ff=128,
+                                    **moe_kw))
+
+
+def _routing(routes: list, forced: list = None):
+    """``moe._router``, appending each call's ids to ``routes`` (on the
+    host); with ``forced`` (ids taken from the front) it routes by those
+    instead, with its own weights at them."""
+    from repro_torch.models import moe
+    router = moe._router
+
+    def recorded(cfg, p, x2d):
+        w, ids, aux = router(cfg, p, x2d)
+        routes.append(ids.cpu())
+        if forced is None:
+            return w, ids, aux
+        ids = forced.pop(0).to(x2d.device)
+        probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+        w = torch.gather(probs, 1, ids)
+        return w / w.sum(-1, keepdim=True), ids, aux
+    return recorded
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_moe_prefill_and_decode_on_the_card(dev, f32):
+    """The narrow MoE stack through the model path on the card (a
+    flash_attention launch in every prefill layer, none in decode) against
+    the same bundle on the CPU. With f32 parameters and cache the routes
+    agree and logits within 1e-3. In bf16 cuBLAS and the CPU round some
+    products one ulp apart, which can flip a near-tied route: at least 80%
+    of the routes agree, and with the CPU's routes forced on the card the
+    logits agree within 0.1 (tests/test_torch_moe_model.py's bound)."""
+    from unittest import mock
+
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model, moe
+    cfg = _narrow_moe_cfg()
+    arch = ArchConfig(model=cfg)
+    seq, batch, steps = 128, 2, 4
+    dt = torch.float32 if f32 else torch.bfloat16
+    key = (batch, seq, seq, 8, 1, 128, True, 0, dt)
+    gen = torch.Generator().manual_seed(0)
+    params, cache, _, _ = model.init_inputs(model.make_step_bundle(
+        arch, ShapeConfig("d", seq, batch, "decode"),
+        make_host_mesh(device="cpu")), gen, "cpu")
+    if f32:
+        params, cache = (tree_map(lambda t: t.float(), tree)
+                         for tree in (params, cache))
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    out, cpu_routes = {}, []
+    for where in ("cpu", dev):
+        env = make_host_mesh(device=where)
+        pre = model.make_step_bundle(arch, ShapeConfig("p", seq, batch,
+                                                       "prefill"), env)
+        dec = model.make_step_bundle(arch, ShapeConfig("d", seq, batch,
+                                                       "decode"), env)
+        p = tree_map(lambda t: t.to(where), params)
+        c = tree_map(lambda t: t.to(where), cache)
+        routes = []
+        forced = None if where == "cpu" or f32 else list(cpu_routes)
+        ops.reset_launch_counts()
+        with mock.patch.object(moe, "_router", _routing(routes, forced)):
+            logits = pre.fn(p, {"tokens": toks.to(where)})
+            counted = ops.launch_counts_by_shape()["flash_attention"]
+            for t in range(steps):
+                step, c = dec.fn(p, c, toks[:, t:t + 1].to(where),
+                                 torch.full((batch,), t, dtype=torch.int32,
+                                            device=where))
+        assert ops.launch_counts_by_shape()["flash_attention"] == counted
+        if where == "cpu":
+            cpu_routes = routes
+        out[str(where)] = (logits.cpu(), step.cpu(), counted, routes)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert cpu[2] == {} and card[2] == {key: cfg.num_layers}
+    same = [float((a == b).float().mean()) for a, b in zip(card[3], cpu[3])]
+    assert len(same) == cfg.num_layers * (1 + steps)
+    assert min(same) == 1.0 if f32 else sum(same) / len(same) >= 0.8
+    for i in (0, 1):
+        torch.testing.assert_close(card[i], cpu[i], atol=1e-3 if f32 else 0.1,
+                                   rtol=0)
+
+
+def test_moe_gather_matches_dense_on_the_card(dev):
+    """At ``capacity_factor = E / k`` nothing drops and the gather path
+    computes what the dense reference does, in bf16 within
+    tests/test_moe.py's 0.06; no kernel of the port launches."""
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    cfg = _narrow_moe_cfg(capacity_factor=16 / 4)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = init_params(moe.moe_specs(cfg), gen, dev)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    env = make_host_mesh(device=dev)
+    ops.reset_launch_counts()
+    yg, aux = moe.apply_moe(cfg, p, x, env, mode="gather")
+    yd, _ = moe.apply_moe(cfg, p, x, env, mode="dense")
+    assert sum(ops.launch_counts().values()) == 0
+    assert float(aux["dropped_frac"]) == 0.0
+    assert yg.dtype == torch.bfloat16 and yg.is_cuda
+    torch.testing.assert_close(yg.float(), yd.float(), atol=0.06, rtol=0)
+
+
+def test_moe_gather_is_bit_for_bit_repeatable_on_the_card(dev):
+    """Two gather runs on the same input agree bit for bit: the combine
+    adds each token's terms in slot order, without atomics (here 2 x 2048
+    tokens, some assignments dropped at the config's capacity)."""
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    cfg = _narrow_moe_cfg()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p = init_params(moe.moe_specs(cfg), gen, dev)
+    x = torch.randn((2, 2048, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    env = make_host_mesh(device=dev)
+    y1, aux1 = moe.apply_moe(cfg, p, x, env)
+    y2, aux2 = moe.apply_moe(cfg, p, x, env)
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert float(aux1["dropped_frac"]) == float(aux2["dropped_frac"])

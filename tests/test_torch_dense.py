@@ -175,11 +175,13 @@ def test_prefill_matches_jax(name, f32):
     assert tuple(got.shape) == (BATCH, 1, jcfg.vocab)
     _close(got, want, f32)
     # prefill is the full forward's last position
-    full = transformer.forward(
+    full, aux = transformer.forward(
         tcfg, ArchConfig(model=tcfg).run_config("x"),
         make_host_mesh(device=CPU), tparams, tbatch.get("tokens"),
         embeds=tbatch.get("embeds"), positions=tbatch.get("positions"))
     assert tuple(full.shape) == (BATCH, SEQ, jcfg.vocab)
+    assert {k: float(v) for k, v in aux.items()} == {"lb_loss": 0.0,
+                                                     "z_loss": 0.0}
     np.testing.assert_allclose(_np(full[:, -1:]), _np(got), **F32_TOL)
 
 

@@ -31,7 +31,7 @@ from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import ArchConfig, MoEConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import make_host_mesh
@@ -390,10 +390,12 @@ def test_prefill_matches_jax(f32):
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 1, 256)
     _close(got, want, f32)
     # prefill is the full forward's last position
-    full = transformer.forward(tcfg, ArchConfig(model=tcfg).run_config("x"),
-                               make_host_mesh(device=CPU), tparams,
-                               torch.from_numpy(toks))
+    full, aux = transformer.forward(
+        tcfg, ArchConfig(model=tcfg).run_config("x"),
+        make_host_mesh(device=CPU), tparams, torch.from_numpy(toks))
     assert tuple(full.shape) == (2, 48, 256)
+    assert {k: float(v) for k, v in aux.items()} == {"lb_loss": 0.0,
+                                                     "z_loss": 0.0}
     _close(full[:, -1:], got, f32=True)
 
 
@@ -465,19 +467,13 @@ def test_decode_from_zero_cache_matches_prefill(f32):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("what", ["train", "moe-in-dense", "moe", "hybrid",
-                                  "encdec"])
+@pytest.mark.parametrize("what", ["train", "hybrid", "encdec"])
 def test_unported_paths_raise(what):
-    """The paths of later slices raise, naming the roadmap; "moe-in-dense"
-    is a dense attention stack whose FFN is a MoE block."""
+    """The paths of later slices raise, naming the roadmap."""
     env = make_host_mesh(device=CPU)
-    names = {"moe-in-dense": "qwen1.5-4b", "moe": "mixtral-8x22b",
-             "hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
+    names = {"hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
              "train": "mamba2-130m"}
     cfg = get_arch(names[what]).model.reduced()
-    if what == "moe-in-dense":
-        cfg = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, d_ff=64))
-        assert cfg.family == "dense" and cfg.layer_kinds()[0] == "attn"
     arch = ArchConfig(model=cfg)
     kind = "train" if what == "train" else "prefill"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
