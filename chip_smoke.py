@@ -43,6 +43,20 @@ executors, then drives each path through the port's own entry points:
   share), decode at batch 8 over a 4096-slot KV cache, and layer 0's MoE
   block alone: gather against the plain dense mode and two gather runs
   bit for bit equal;
+* the hybrid model path: Jamba-v0.1-52B (full width, its first 16 of 32
+  layers, two whole periods, since all 32 do not fit the card; bf16,
+  random weights drawn on the card layer by layer from a seed): the same
+  checks as the MoE path with ``ssd_scan`` beside ``flash_attention``
+  (14 and 2 launches a 2 x 4096 prefill request), the plain prefill
+  through ``ssd_ref`` and ``flash_attention_ref``;
+* the enc-dec model path: Whisper-small (full size, 12 + 12 layers, bf16,
+  random weights and stub frames): prefill through the kernel against its
+  plain version and decode from the zero self cache (the cross K/V filled
+  from the encoder's output) against prefill (2 x 256 tokens over 1500
+  frames), three prefill requests of 8 x (1500 frames, 448 tokens) with
+  36 bf16 ``flash_attention`` launches each (encoder, decoder
+  self-attention, cross-attention), one more under the profiler, and
+  decode at batch 8;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``).
 
@@ -185,6 +199,38 @@ MOE_LOGIT_REL_L2 = 0.12
 # wrong would move the relative L2 past 1e-3
 MOE_BLOCK_ATOL = 1e-2
 MOE_BLOCK_REL_L2 = 1e-3
+HYBRID = "jamba-v0.1-52b"
+# two whole 8-layer periods (14 Mamba-2 and 2 attention layers, MoE on the
+# odd layers): 26.00B parameters, 52.0 GB in bf16. All 32 layers are
+# 51.46B (102.9 GB), more than the 80 GB card holds, and 24 layers (77.5
+# GB) would leave no room for activations or a cache
+HYBRID_LAYERS = 16
+HYBRID_BATCH, HYBRID_SEQ, HYBRID_REQUESTS = 2, 4096, 3
+HYBRID_DECODE_BATCH, HYBRID_DECODE_STEPS = 8, 16
+# Jamba logits (up to about 4.3 with these random weights) of two runs
+# that differ in the f32 summation order of attention and the SSD scan
+# (kernels vs ssd_ref and flash_attention_ref) or of decode step by step
+# vs prefill (2 x 256, 16 layers, capacity E / k). Near-tied routes flip
+# between the two runs (about 4% of the slots, 2% of the chosen experts),
+# and with top-2 a flip moves its token by up to half its FFN output; the
+# 14 bf16 Mamba-2 layers carry the one-ulp residuals further than
+# attention layers do. On an H100 80GB HBM3 at 700 W, seeds 6-9
+# (tools/moe_consistency_seeds.py --phase hybrid; 6 is the phase's) read
+# at most 0.598 max abs and 9.7% relative L2 (kernels vs plain), 0.623
+# and 10.7% (decode vs prefill). The checks allow about twice that
+HYBRID_LOGIT_ATOL, HYBRID_LOGIT_REL_L2 = 1.2, 0.2
+ENCDEC = "whisper-small"
+# 8 requests of 1500 stub frames each, with a decoder prompt of 448
+# tokens, the released model's cap
+ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_REQUESTS = 8, 448, 3
+ENCDEC_DECODE_BATCH, ENCDEC_DECODE_STEPS = 8, 16
+# Whisper-small logits (up to about 0.55) of prefill through the kernel
+# vs through its plain version, or of decode step by step vs prefill (2 x
+# 256 tokens over 1500 frames): one-ulp residuals of 24 bf16 layers. On
+# an H100 80GB HBM3 at 700 W, seeds 7-10 (tools/moe_consistency_seeds.py
+# --phase encdec; 7 is the phase's) read at most 0.0059 max abs (1.5 bf16
+# ulps at 0.5) and 0.98% relative L2; the checks allow 2.5x and 2x that
+ENCDEC_LOGIT_ATOL, ENCDEC_LOGIT_REL_L2 = 0.015, 0.02
 # a bf16 flash_attention output against its plain version: both round an
 # f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
 # above a floor for outputs near zero; the rounding alone gives a relative
@@ -400,7 +446,8 @@ def shape_work(kernel: str, key):
         padded = -(-r // tr) * tr * (-(-c // tc) * tc)
         return 0.0, float(dtype.itemsize) * (r * c + padded)
     b, sq, sk, hq, hkv, hd, causal, window, dtype = key
-    check(sq == sk and window == 0, f"attention work at {key}")
+    check(window == 0 and (sq == sk or not causal),
+          f"attention work at {key}")
     pairs = sq * (sq + 1) / 2 if causal else sq * sk
     return 4.0 * hd * pairs * hq * b, float(dtype.itemsize) * b * hd * (
         2 * sq * hq + 2 * sk * hkv)
@@ -592,11 +639,88 @@ def logits_close(got, want, what, atol=LOGIT_ATOL, rel_l2=LOGIT_REL_L2):
     return err, rel
 
 
-def flash_key(cfg, batch: int, seq: int) -> tuple:
-    """The bf16 ``flash_attention`` launch key of one prefill layer."""
-    return ("flash_attention", (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, True, 0,
-                                torch.bfloat16))
+def flash_key(cfg, batch: int, seq: int, keys: int = None,
+              causal: bool = True) -> tuple:
+    """The bf16 ``flash_attention`` launch key of one prefill layer (``keys``
+    positions of keys, ``seq`` by default)."""
+    return ("flash_attention", (batch, seq, keys or seq, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.resolved_head_dim, causal,
+                                0, torch.bfloat16))
+
+
+def ssd_key(cfg, batch: int, seq: int) -> tuple:
+    """The ``ssd_scan`` launch key of one Mamba-2 prefill layer."""
+    from repro_torch.kernels.ssd_scan import chunk_len
+    sc = cfg.ssm
+    return ("ssd_scan", (batch, seq, sc.expand * cfg.d_model // sc.head_dim,
+                         sc.head_dim, sc.d_state, chunk_len(seq, sc.chunk)))
+
+
+def prefill_launches(cfg, batch: int, seq: int) -> Counter:
+    """The kernel launches of one prefill of ``batch`` x ``seq`` tokens, by
+    (kernel, key): a bf16 ``flash_attention`` an attention layer and an
+    ``ssd_scan`` a Mamba-2 layer; for the enc-dec family one bidirectional
+    attention over the frames an encoder layer, and a causal
+    self-attention and a cross-attention over the frames a decoder
+    layer."""
+    if cfg.family == "encdec":
+        t = cfg.encoder_seq
+        return Counter({
+            flash_key(cfg, batch, t, causal=False): cfg.encoder_layers,
+            flash_key(cfg, batch, seq): cfg.num_layers,
+            flash_key(cfg, batch, seq, t, causal=False): cfg.num_layers})
+    kinds = Counter(cfg.layer_kinds())
+    out = Counter()
+    if kinds["attn"]:
+        out[flash_key(cfg, batch, seq)] = kinds["attn"]
+    if kinds["ssm"]:
+        out[ssd_key(cfg, batch, seq)] = kinds["ssm"]
+    return out
+
+
+def stub_frames(cfg, batch: int, gen, dev) -> torch.Tensor:
+    """Random bf16 frame embeddings [batch, encoder_seq, d_model] for the
+    audio stub."""
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def prefill_batch(cfg, batch: int, seq: int, gen, dev) -> dict:
+    """A prefill batch of random tokens, and for the audio stub random
+    frames."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                                   device=dev, dtype=torch.int32)}
+    if cfg.frontend == "audio_stub":
+        out["frames"] = stub_frames(cfg, batch, gen, dev)
+    return out
+
+
+def ssd_plain(x, dt, a, b, c, d, *, chunk):
+    """``ops.ssd``'s plain version, the sequential recurrence (no chunk)."""
+    from repro_torch.kernels import ref
+    return ref.ssd_ref(x, dt, a, b, c, d)
+
+
+def decode_cache(arch, dec, params, env, frames=None) -> dict:
+    """The decode bundle ``dec``'s cache, zeros; for the enc-dec family its
+    ``cross_k``/``cross_v`` filled layer by layer with the cross-attention
+    K/V projection of the encoder's output over ``frames`` (the JAX
+    package has no function that fills them)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention, encdec
+    cfg = arch.model
+    cache = shd.init_params(dec.arg_specs[1], None, env.device)
+    if cfg.family != "encdec":
+        return cache
+    enc = encdec.encode(cfg, arch.run_config("decode"), env, params, frames)
+    positions = torch.arange(enc.shape[1], device=enc.device)[None].expand(
+        enc.shape[:2])
+    for i in range(cfg.num_layers):
+        p = shd.tree_map(lambda t: t[i], params["decoder"]["cross_attn"])
+        _, k, v = attention.qkv_project(cfg, p, enc, positions, env)
+        cache["cross_k"][i].copy_(k)
+        cache["cross_v"][i].copy_(v)
+    return cache
 
 
 def counted() -> Counter:
@@ -608,15 +732,23 @@ def counted() -> Counter:
 
 
 def draw_by_layer(specs, gen: torch.Generator, dev) -> dict:
-    """Parameters of ``specs`` drawn on ``dev`` from ``gen``, the stacked
-    ``blocks`` one layer at a time: ``init_params`` draws each leaf in f32
-    before the cast, and a stacked expert leaf of Qwen3-30B-A3B would need
-    a 38.6 GB f32 temporary. Each stacked bf16 leaf is allocated first and
-    layer i is filled from ``init_params`` on the per-layer specs."""
+    """Parameters of ``specs`` drawn on ``dev`` from ``gen`` one layer at a
+    time: ``init_params`` draws each leaf in f32 before the cast, and a
+    stacked expert leaf of Qwen3-30B-A3B would need a 38.6 GB f32
+    temporary. Each stacked bf16 leaf of ``blocks`` is allocated first and
+    layer i is filled from ``init_params`` on the per-layer specs; a
+    per-layer ``layers`` tree (the hybrid family, whose expert leaf
+    [16, 4096, 14336] is a 3.8 GB f32 temporary) is drawn layer by
+    layer."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import transformer
     params = shd.init_params({k: v for k, v in specs.items()
-                              if k != "blocks"}, gen, dev)
+                              if k not in ("blocks", "layers")}, gen, dev)
+    if "layers" in specs:
+        params["layers"] = {i: shd.init_params(layer, gen, dev)
+                            for i, layer in specs["layers"].items()}
+    if "blocks" not in specs:
+        return params
     blocks = shd.spec_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                                 device=dev), specs["blocks"])
     layer_specs = transformer.strip_layer_axis(specs["blocks"])
@@ -684,7 +816,8 @@ def moe_ranges():
 
 def profile_split(prof, wall_s: float) -> tuple:
     """A profiler run over the CPU and the card, as ms of kernel time:
-    ``flash_attention`` (by kernel name), the kernels of ``aten::bmm`` (the
+    ``flash_attention`` and ``ssd_scan`` (by kernel name), the kernels of
+    ``aten::bmm`` (the
     MoE layer's expert products; attention's products in decode), those of
     ``aten::mm`` (the projections, the router, the head) and the rest; the
     kernel time of each MoE stage of ``moe_ranges`` (its products
@@ -702,11 +835,14 @@ def profile_split(prof, wall_s: float) -> tuple:
     busy = sum(kernels.values())
     flash = sum(ms_ for k, ms_ in kernels.items()
                 if "flash_tc_kernel" in k or "flash_kernel" in k)
-    split = {"flash_attention": flash, "bmm": ops_["aten::bmm"],
-             "mm": ops_["aten::mm"],
-             "rest": busy - flash - ops_["aten::bmm"] - ops_["aten::mm"]}
+    ssd = sum(ms_ for k, ms_ in kernels.items() if ssd_pass_of(k))
+    split = {"flash_attention": flash, "ssd_scan": ssd,
+             "bmm": ops_["aten::bmm"], "mm": ops_["aten::mm"],
+             "rest": busy - flash - ssd - ops_["aten::bmm"]
+             - ops_["aten::mm"]}
     rest = Counter({k: ms_ for k, ms_ in kernels.items()
-                    if "flash" not in k and not MATMUL_NAMES.search(k)})
+                    if "flash" not in k and not ssd_pass_of(k)
+                    and not MATMUL_NAMES.search(k)})
     return (split, {n: ops_[n] for n in MOE_STAGES}, rest, busy,
             1 - busy / 1e3 / wall_s)
 
@@ -728,14 +864,14 @@ def profiled_call(fn, ranges=contextlib.nullcontext) -> tuple:
 def consistency(name: str, arch, params, gen, dev, env, atol: float,
                 rel_l2: float, record=contextlib.nullcontext) -> dict:
     """At CONSIST_BATCH x CONSIST_SEQ over all of ``arch``'s layers:
-    prefill through ``flash_attention`` (one launch a layer) against the
-    same prefill through its plain version, then decode step by step from
-    the zero cache (no launch) against the prefill, both logits within
-    ``atol`` max abs and ``rel_l2`` relative L2. ``record`` wraps each of
-    the three runs; what it yields comes back under ``kernel``, ``plain``
-    and ``decode``."""
+    prefill through the kernels (``prefill_launches``) against the same
+    prefill through their plain versions (``flash_attention_ref`` and the
+    recurrence ``ssd_ref``), then decode step by step from the zero cache
+    (the enc-dec cross K/V filled from the prompt's frames; no launch)
+    against the prefill, both logits within ``atol`` max abs and
+    ``rel_l2`` relative L2. ``record`` wraps each of the three runs; what
+    it yields comes back under ``kernel``, ``plain`` and ``decode``."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model
     cfg = arch.model
@@ -743,25 +879,25 @@ def consistency(name: str, arch, params, gen, dev, env, atol: float,
         "prefill", CONSIST_SEQ, CONSIST_BATCH, "prefill"), env)
     cdec = model.make_step_bundle(arch, ShapeConfig(
         "decode", CONSIST_SEQ, CONSIST_BATCH, "decode"), env)
-    prompt = torch.randint(0, cfg.vocab, (CONSIST_BATCH, CONSIST_SEQ),
-                           generator=gen, device=dev, dtype=torch.int32)
+    batch = prefill_batch(cfg, CONSIST_BATCH, CONSIST_SEQ, gen, dev)
+    prompt = batch["tokens"]
     ops.reset_launch_counts()
     with record() as kernel_rec:
-        want = cpre.fn(params, {"tokens": prompt})
+        want = cpre.fn(params, batch)
         torch.cuda.synchronize()
-    check(counted() == Counter({flash_key(cfg, CONSIST_BATCH, CONSIST_SEQ):
-                                cfg.num_layers}),
+    check(counted() == prefill_launches(cfg, CONSIST_BATCH, CONSIST_SEQ),
           f"consistency prefill launches {dict(counted())}")
     with record() as plain_rec, \
-            mock.patch.object(ops, "attention", ref.flash_attention_ref):
-        plain_out = cpre.fn(params, {"tokens": prompt})
+            mock.patch.object(ops, "attention", ref.flash_attention_ref), \
+            mock.patch.object(ops, "ssd", ssd_plain):
+        plain_out = cpre.fn(params, batch)
         torch.cuda.synchronize()
     plain_err, plain_rel = logits_close(
         want, plain_out, f"{name} prefill through flash_attention vs "
         f"through its plain version", atol, rel_l2)
     same_argmax = int((want.argmax(-1) == plain_out.argmax(-1)).sum())
     del plain_out
-    cache = shd.init_params(cdec.arg_specs[1], gen, dev)          # zeros
+    cache = decode_cache(arch, cdec, params, env, batch.get("frames"))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with record() as decode_rec:
@@ -786,22 +922,20 @@ def consistency(name: str, arch, params, gen, dev, env, atol: float,
 def prefill_requests(name: str, cfg, pre, params, gen, dev, n: int,
                      batch: int, seq: int,
                      record=contextlib.nullcontext) -> dict:
-    """``n`` prefill requests of ``batch`` x ``seq`` tokens through the
-    bundle ``pre``: each request's wall and what ``record`` yielded around
-    it, finite logits, and the launches by (kernel, key), exactly one bf16
-    ``flash_attention`` a layer. Returns those and the last request's
-    tokens."""
+    """``n`` prefill requests of ``batch`` x ``seq`` tokens (and frames,
+    for the audio stub) through the bundle ``pre``: each request's wall
+    and what ``record`` yielded around it, finite logits, and the launches
+    by (kernel, key), exactly ``prefill_launches`` a request. Returns those
+    and the last request's batch."""
     from repro_torch.kernels import ops
-    requests = [torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
-                              device=dev, dtype=torch.int32)
-                for _ in range(n)]
+    requests = [prefill_batch(cfg, batch, seq, gen, dev) for _ in range(n)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     walls, recs = [], []
-    for toks in requests:
+    for inputs in requests:
         with record() as rec:
             t0 = time.perf_counter()
-            out = pre.fn(params, {"tokens": toks})
+            out = pre.fn(params, inputs)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         recs.append(rec)
@@ -809,28 +943,30 @@ def prefill_requests(name: str, cfg, pre, params, gen, dev, n: int,
               and bool(torch.isfinite(out).all()),
               f"{name} prefill logits {tuple(out.shape)} not finite")
     shapes = counted()
-    key = flash_key(cfg, batch, seq)
-    check(shapes == Counter({key: cfg.num_layers * n}),
-          f"prefill launches {dict(shapes)}, expected {cfg.num_layers} a "
-          f"request at {key}")
+    per_request = prefill_launches(cfg, batch, seq)
+    check(shapes == Counter({k: c * n for k, c in per_request.items()}),
+          f"prefill launches {dict(shapes)}, expected {dict(per_request)} a "
+          f"request")
     return {"walls": walls, "records": recs, "shapes": shapes,
             "last": requests[-1]}
 
 
 def decode_run(name: str, arch, params, gen, dev, env, batch: int,
                seq: int, steps: int, ranges=contextlib.nullcontext) -> dict:
-    """Decode at ``batch`` over a cache of ``seq`` slots, the last
-    ``steps`` positions, each step's pick fed back: each step's wall, no
-    kernel launch and finite logits; then one more step under
-    ``profiled_call``. Returns the walls, the cache and that profile."""
+    """Decode at ``batch`` over a cache of ``seq`` slots (for the enc-dec
+    family, cross K/V of random frames), the last ``steps`` positions, each
+    step's pick fed back: each step's wall, no kernel launch and finite
+    logits; then one more step under ``profiled_call``. Returns the walls,
+    the cache and that profile."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import ops
     from repro_torch.models import model
     cfg = arch.model
     dec = model.make_step_bundle(arch, ShapeConfig("decode", seq, batch,
                                                    "decode"), env)
-    cache = shd.init_params(dec.arg_specs[1], gen, dev)           # zeros
+    frames = stub_frames(cfg, batch, gen, dev) \
+        if cfg.frontend == "audio_stub" else None
+    cache = decode_cache(arch, dec, params, env, frames)
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev,
                         dtype=torch.int32)
     ops.reset_launch_counts()
@@ -870,16 +1006,18 @@ def moe_arch_at_full_capacity(arch):
         m, capacity_factor=m.n_experts / m.top_k)))
 
 
-def moe_consistency(name: str, arch, params, gen, dev, env) -> dict:
-    """``consistency`` of an MoE model at capacity E / k with each layer's
-    routes recorded: no assignment dropped in any run, the share of routes
-    that agree between the kernel's and the plain prefill and between
-    decode and prefill (by slot and by chosen expert), logged."""
+def moe_consistency(name: str, arch, params, gen, dev, env, tag="[moe]",
+                    atol=MOE_LOGIT_ATOL, rel_l2=MOE_LOGIT_REL_L2) -> dict:
+    """``consistency`` of a model with MoE layers at capacity E / k with
+    each MoE layer's routes recorded: no assignment dropped in any run, the
+    share of routes that agree between the kernel's and the plain prefill
+    and between decode and prefill (by slot and by chosen expert), logged
+    under ``tag``."""
     carch = moe_arch_at_full_capacity(arch)
     cfg, m = carch.model, carch.model.moe
-    n_layers = cfg.num_layers
-    r = consistency(name, carch, params, gen, dev, env, MOE_LOGIT_ATOL,
-                    MOE_LOGIT_REL_L2, moe_recording)
+    n_layers = sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
+    r = consistency(name, carch, params, gen, dev, env, atol, rel_l2,
+                    moe_recording)
     (kernel_routes, k_drop), (plain_routes, _), (decode_routes, d_drop) = \
         r["kernel"], r["plain"], r["decode"]
     check(len(k_drop) == n_layers and float(torch.stack(k_drop).max())
@@ -897,22 +1035,22 @@ def moe_consistency(name: str, arch, params, gen, dev, env) -> dict:
                                         m.top_k).permute(2, 0, 1, 3),
         m.n_experts)
     want, got = r["want"], r["got"]
-    log(f"[moe] prefill {CONSIST_BATCH} x {CONSIST_SEQ} at capacity factor "
+    log(f"{tag} prefill {CONSIST_BATCH} x {CONSIST_SEQ} at capacity factor "
         f"{m.capacity_factor} (dropped 0 in every layer) through "
         f"flash_attention vs through flash_attention_ref: routes (token, "
         f"layer, slot) agree {slots:.4%} (the least layer "
         f"{min(a[0] for a in agree):.4%}, layer 0 {agree[0][0]:.4%}), "
         f"each token's chosen experts {sets:.4%} (the least layer "
         f"{min(a[1] for a in agree):.4%}); logits "
-        f"max abs err {r['plain_err']:.3e} (atol {MOE_LOGIT_ATOL}), relative "
-        f"L2 {r['plain_rel']:.3e} (<= {MOE_LOGIT_REL_L2}), |logits| up to "
+        f"max abs err {r['plain_err']:.3e} (atol {atol}), relative "
+        f"L2 {r['plain_rel']:.3e} (<= {rel_l2}), |logits| up to "
         f"{want.abs().max().item():.3f}, same argmax in "
         f"{r['same_argmax']}/{CONSIST_BATCH} rows")
-    log(f"[moe] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
+    log(f"{tag} decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
         f"the zero cache ({r['decode_s']:.3f} s, no kernel launch, dropped "
         f"0) vs prefill: routes agree {dec_slots:.4%} by slot, "
         f"{dec_sets:.4%} by chosen expert; logits max abs err "
-        f"{r['consist_err']:.3e} (atol {MOE_LOGIT_ATOL}), relative L2 "
+        f"{r['consist_err']:.3e} (atol {atol}), relative L2 "
         f"{r['consist_rel']:.3e}; decode picks "
         f"{got.argmax(-1).flatten().tolist()}, prefill "
         f"{want.argmax(-1).flatten().tolist()}. At the config's own "
@@ -980,7 +1118,7 @@ def moe_phase(dev, env, smi: str) -> dict:
         f"{dict(shapes)} ({n_layers} a request); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     prof_wall, split, stages, rest, busy, idle = profiled_call(
-        lambda: pre.fn(params, {"tokens": req["last"]}), moe_ranges)
+        lambda: pre.fn(params, req["last"]), moe_ranges)
     check(split["flash_attention"] > 0 and split["bmm"] > 0,
           f"the profiler saw no flash_attention or expert products in a "
           f"prefill: {split}")
@@ -1053,6 +1191,263 @@ def moe_phase(dev, env, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"shapes": shapes, "plain_err": errs["plain_err"],
             "consist_err": errs["consist_err"], "block_err": block_err}
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.distributed.sharding import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def hybrid_arch():
+    """Jamba-v0.1-52B cut to its first HYBRID_LAYERS layers, full width."""
+    from repro_torch.configs import get_arch
+    full = get_arch(HYBRID)
+    return replace(full, model=replace(full.model, num_layers=HYBRID_LAYERS))
+
+
+def hybrid_consistency(arch, params, gen, dev, env) -> dict:
+    """Phase 7d's ``moe_consistency`` at its bounds."""
+    return moe_consistency("Jamba", arch, params, gen, dev, env, "[hybrid]",
+                           HYBRID_LOGIT_ATOL, HYBRID_LOGIT_REL_L2)
+
+
+def encdec_consistency(arch, params, gen, dev, env) -> dict:
+    """Phase 7e's ``consistency`` at its bounds."""
+    return consistency("Whisper", arch, params, gen, dev, env,
+                       ENCDEC_LOGIT_ATOL, ENCDEC_LOGIT_REL_L2)
+
+
+def hybrid_phase(dev, env, smi: str) -> dict:
+    """Phase 7d: Jamba-v0.1-52B (full width, its first HYBRID_LAYERS layers,
+    bf16, random weights drawn on the card layer by layer from a seed)
+    through ``make_step_bundle``, the first path with both kernels in one
+    request. Returns the launches of its prefill requests by (kernel, key)
+    and its checks' errors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_mod
+
+    t_phase = time.perf_counter()
+    full, arch = get_arch(HYBRID), hybrid_arch()
+    cfg, m, sc = arch.model, arch.model.moe, arch.model.ssm
+    kinds = Counter(cfg.layer_kinds())
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
+    check(by_kernel(prefill_launches(cfg, HYBRID_BATCH, HYBRID_SEQ))
+          == Counter({"ssd_scan": 14, "flash_attention": 2}),
+          f"{HYBRID} at {HYBRID_LAYERS} layers: {dict(kinds)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    pre = model.make_step_bundle(arch, ShapeConfig(
+        "prefill", HYBRID_SEQ, HYBRID_BATCH, "prefill"), env)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    params = draw_by_layer(pre.arg_specs[0], gen, dev)
+    torch.cuda.synchronize()
+    full_specs = model.param_specs(full.model)
+    log(f"[hybrid] {smi}: {HYBRID}: the first {cfg.num_layers} of its "
+        f"{full.model.num_layers} layers, two whole periods of "
+        f"{cfg.attn_every} ({kinds['ssm']} Mamba-2 layers, {kinds['attn']} "
+        f"attention layers at index {cfg.attn_every // 2} of a period, an MoE "
+        f"FFN on the {n_moe} odd layers); all {full.model.num_layers} layers "
+        f"are {shd.param_count(full_specs) / 1e9:.2f}B parameters "
+        f"({shd.param_bytes(full_specs) / 1e9:.1f} GB in bf16), more than "
+        f"the card's memory. d_model {cfg.d_model}, {cfg.n_heads} query and "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim} (no "
+        f"positions), SSD {sc.expand * cfg.d_model // sc.head_dim} heads of "
+        f"{sc.head_dim}, d_state {sc.d_state}, chunk {sc.chunk}, "
+        f"{m.n_experts} experts of width {m.d_ff}, top-{m.top_k}, capacity "
+        f"factor {m.capacity_factor}, vocab {cfg.vocab}, bf16; "
+        f"{shd.param_count(pre.arg_specs[0]) / 1e9:.3f}B parameters "
+        f"({shd.param_bytes(pre.arg_specs[0]) / 1e9:.2f} GB) drawn on {dev} "
+        f"layer by layer in {time.perf_counter() - t0:.2f}s "
+        f"({before / 1e9:.2f} GB allocated before them); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+
+    # (b) full width, all 16 layers, 2 x 256, at capacity factor E / k:
+    # prefill through ssd_scan and flash_attention against prefill through
+    # ssd_ref and flash_attention_ref, and decode against prefill
+    errs = hybrid_consistency(arch, params, gen, dev, env)
+
+    # (c) prefill requests of HYBRID_BATCH x HYBRID_SEQ tokens at the
+    # config's capacity factor, then one more under the profiler with each
+    # MoE stage in a range of its own
+    req = prefill_requests("Jamba", cfg, pre, params, gen, dev,
+                           HYBRID_REQUESTS, HYBRID_BATCH, HYBRID_SEQ,
+                           moe_recording)
+    walls, shapes = req["walls"], req["shapes"]
+    drops = [torch.stack(dropped) for _, dropped in req["records"]]
+    tokens_req = HYBRID_BATCH * HYBRID_SEQ
+    log(f"[hybrid] {smi}: prefill {HYBRID_REQUESTS} requests of "
+        f"{HYBRID_BATCH} x {HYBRID_SEQ} tokens: wall "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
+        f"dropped_frac (mean over the MoE layers) "
+        f"{', '.join(f'{d.mean().item():.4f}' for d in drops)}, by MoE layer "
+        f"in request 0 {[round(d, 3) for d in drops[0].tolist()]}; launches "
+        f"{dict(shapes)} ({kinds['ssm']} ssd_scan and {kinds['attn']} "
+        f"flash_attention a request); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    prof_wall, split, stages, rest, busy, idle = profiled_call(
+        lambda: pre.fn(params, req["last"]), moe_ranges)
+    check(split["flash_attention"] > 0 and split["ssd_scan"] > 0
+          and split["bmm"] > 0, f"the profiler saw no flash_attention, "
+          f"ssd_scan or expert products in a prefill: {split}")
+    warm = min(walls[1:])
+    log(f"[hybrid] {smi}: profiled prefill of {HYBRID_BATCH} x "
+        f"{HYBRID_SEQ}: wall {prof_wall:.4f} s (warm unprofiled {warm:.4f} "
+        f"s); device time "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in split.items())
+        + f" (bmm: the expert products; mm: the projections, router and "
+        f"head); compute stream busy {busy:.3f} ms, idle {idle:.1%} of the "
+        f"profiled wall ({1 - busy / 1e3 / warm:.1%} of the warm wall); by "
+        f"MoE stage (its products included) {stage_list(stages)}")
+    log(f"[hybrid] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(10)))
+    del req
+
+    # (d) decode at batch HYBRID_DECODE_BATCH over HYBRID_SEQ slots
+    d = decode_run("Jamba", arch, params, gen, dev, env, HYBRID_DECODE_BATCH,
+                   HYBRID_SEQ, HYBRID_DECODE_STEPS, moe_ranges)
+    steps, cache = d["walls"], d["cache"]
+    step_wall, dsplit, dstages, drest, _, didle = d["profile"]
+    mem = torch.cuda.max_memory_allocated()
+    log(f"[hybrid] {smi}: decode {HYBRID_DECODE_STEPS} steps at batch "
+        f"{HYBRID_DECODE_BATCH}, a KV cache of {HYBRID_SEQ} slots in the "
+        f"{kinds['attn']} attention layers and an SSM state in the others "
+        f"({tree_bytes(cache) / 1e9:.3f} GB in all), capacity "
+        f"{moe_mod.capacity(1, m.n_experts, m.top_k, m.capacity_factor)} "
+        f"slots an expert a row: median step {np.median(steps) * 1e3:.3f} "
+        f"ms, first {steps[0] * 1e3:.3f} ms, no kernel launch; one step "
+        f"profiled: wall {step_wall * 1e3:.3f} ms, device time "
+        f"{ms_list(dsplit)}, idle {didle:.1%}; by MoE stage "
+        f"{stage_list(dstages)}; the rest's largest kernels: " + "; ".join(
+            f"{short_kernel_name(k)} {v:.3f} ms"
+            for k, v in drest.most_common(5))
+        + f"; max_memory_allocated {mem / 1e9:.2f} GB; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, d, cache, pre
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "plain_err": errs["plain_err"],
+            "consist_err": errs["consist_err"], "peak_bytes": mem}
+
+
+def encdec_phase(dev, env, smi: str) -> dict:
+    """Phase 7e: Whisper-small (full size, bf16, random weights drawn on the
+    card from a seed, random stub frames) through ``make_step_bundle``: a
+    bf16 ``flash_attention`` for each attention of the encoder and the
+    decoder. Returns the launches of its prefill requests by (kernel, key)
+    and its checks' errors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    arch = get_arch(ENCDEC)
+    cfg = arch.model
+    per_request = prefill_launches(cfg, ENCDEC_BATCH, ENCDEC_SEQ)
+    check(sum(per_request.values()) == 36, f"{ENCDEC}: {dict(per_request)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pre = model.make_step_bundle(arch, ShapeConfig(
+        "prefill", ENCDEC_SEQ, ENCDEC_BATCH, "prefill"), env)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    params = shd.init_params(pre.arg_specs[0], gen, dev)
+    torch.cuda.synchronize()
+    log(f"[encdec] {smi}: {ENCDEC}: {cfg.encoder_layers} encoder layers over "
+        f"{cfg.encoder_seq} stub frames, {cfg.num_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim} (MHA, QKV bias), LayerNorm, GELU, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (tied), bf16; "
+        f"{shd.param_count(pre.arg_specs[0]) / 1e6:.1f}M parameters "
+        f"({shd.param_bytes(pre.arg_specs[0]) / 1e6:.1f} MB, the decoder's "
+        f"position table of 65536 rows included) drawn on {dev} in "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # (a) 2 x 256 decoder tokens over 1500 frames: prefill through
+    # flash_attention against prefill through flash_attention_ref, then
+    # decode from the zero self cache over the cross K/V of the same frames
+    r = encdec_consistency(arch, params, gen, dev, env)
+    want, got = r["want"], r["got"]
+    log(f"[encdec] prefill {CONSIST_BATCH} x {CONSIST_SEQ} tokens over "
+        f"{cfg.encoder_seq} frames through flash_attention vs through "
+        f"flash_attention_ref: max abs err {r['plain_err']:.3e} (atol "
+        f"{ENCDEC_LOGIT_ATOL}), relative L2 {r['plain_rel']:.3e} (<= "
+        f"{ENCDEC_LOGIT_REL_L2}), |logits| up to "
+        f"{want.abs().max().item():.3f}, same argmax in "
+        f"{r['same_argmax']}/{CONSIST_BATCH} rows")
+    log(f"[encdec] decode {CONSIST_SEQ} steps at batch {CONSIST_BATCH} from "
+        f"the zero self cache over the cross K/V of the prompt's frames "
+        f"({r['decode_s']:.3f} s, no kernel launch) vs prefill: max abs err "
+        f"{r['consist_err']:.3e} (atol {ENCDEC_LOGIT_ATOL}), relative L2 "
+        f"{r['consist_rel']:.3e}; decode picks "
+        f"{got.argmax(-1).flatten().tolist()}, prefill "
+        f"{want.argmax(-1).flatten().tolist()}")
+    errs = {k: r[k] for k in ("plain_err", "consist_err")}
+    del r, want, got
+
+    # (b) prefill requests of ENCDEC_BATCH x (1500 frames, ENCDEC_SEQ
+    # tokens): 12 encoder, 12 causal self-attention and 12 cross-attention
+    # launches a request; then (c) one more under the profiler
+    req = prefill_requests("Whisper", cfg, pre, params, gen, dev,
+                           ENCDEC_REQUESTS, ENCDEC_BATCH, ENCDEC_SEQ)
+    walls, shapes = req["walls"], req["shapes"]
+    log(f"[encdec] {smi}: prefill {ENCDEC_REQUESTS} requests of "
+        f"{ENCDEC_BATCH} x ({cfg.encoder_seq} frames, {ENCDEC_SEQ} tokens): "
+        f"wall {', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{', '.join(f'{ENCDEC_BATCH / w:.1f}' for w in walls)} requests/s, "
+        f"{', '.join(f'{ENCDEC_BATCH * ENCDEC_SEQ / w:.0f}' for w in walls)}"
+        f" decoder tokens/s; launches {dict(shapes)} "
+        f"({sum(per_request.values())} a request)")
+    prof_wall, split, _, rest, busy, idle = profiled_call(
+        lambda: pre.fn(params, req["last"]))
+    check(split["flash_attention"] > 0,
+          "the profiler saw no flash_attention in a prefill")
+    warm = min(walls[1:])
+    log(f"[encdec] {smi}: profiled prefill of {ENCDEC_BATCH} x "
+        f"({cfg.encoder_seq} frames, {ENCDEC_SEQ} tokens): wall "
+        f"{prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device time "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in split.items())
+        + f" (mm: the projections and the head); compute stream busy "
+        f"{busy:.3f} ms, idle {idle:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / warm:.1%} of the warm wall)")
+    log(f"[encdec] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(8)))
+    del req
+
+    # (d) decode at batch ENCDEC_DECODE_BATCH over ENCDEC_SEQ self slots
+    # and the cross K/V of random frames
+    d = decode_run("Whisper", arch, params, gen, dev, env,
+                   ENCDEC_DECODE_BATCH, ENCDEC_SEQ, ENCDEC_DECODE_STEPS)
+    steps, cache = d["walls"], d["cache"]
+    step_wall, dsplit, _, drest, _, didle = d["profile"]
+    mem = torch.cuda.max_memory_allocated()
+    log(f"[encdec] {smi}: decode {ENCDEC_DECODE_STEPS} steps at batch "
+        f"{ENCDEC_DECODE_BATCH}, self cache {tuple(cache['self']['k'].shape)}"
+        f", cross K/V {tuple(cache['cross_k'].shape)} "
+        f"({tree_bytes(cache) / 1e9:.3f} GB in all): median step "
+        f"{np.median(steps) * 1e3:.3f} ms, first {steps[0] * 1e3:.3f} ms, no "
+        f"kernel launch; one step profiled: wall {step_wall * 1e3:.3f} ms, "
+        f"device time {ms_list(dsplit)} (bmm: attention's products over the "
+        f"caches), idle {didle:.1%}; the rest's largest kernels: "
+        + "; ".join(f"{short_kernel_name(k)} {v:.3f} ms"
+                    for k, v in drest.most_common(5))
+        + f"; max_memory_allocated {mem / 1e9:.2f} GB; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, d, cache, pre
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "peak_bytes": mem, **errs}
 
 
 def main() -> int:
@@ -1224,6 +1619,9 @@ def main() -> int:
         time it, the plain version and the library call into
         ``measured``."""
         kn, key = shape
+        if kn == "ssd_scan":
+            measure_ssd(key)
+            return
         if kn == "streamed_matmul":
             m, k, n = key
             a, b = rnd(m, k), rnd(k, n, scale=k ** -0.5)
@@ -1370,43 +1768,56 @@ def main() -> int:
         f"cases (bit-exact), f32 and bf16, and {len(boundary)} at the "
         f"paths' boundaries")
 
-    # (d) ssd_scan at the Mamba-2-130M prefill shape, timed, against the
-    # sequential recurrence (its plain version) and against ssd_chunked
-    # (what the model path runs on the CPU): f32 summation order only, so
-    # within 1e-4 (chunked) and 1e-3 (4096 sequential steps) of y's scale
+    def measure_ssd(key) -> tuple:
+        """ssd_scan at a model path's ``key`` (B, S, H, P, N, chunk),
+        timed, against the sequential recurrence (its plain version) and
+        against ssd_chunked (what the model path runs on the CPU): f32
+        summation order only, so within 1e-4 (chunked) and 1e-3 (S
+        sequential steps) of y's scale. Returns the inputs."""
+        q = key[5]
+        check(chunk_len(key[1], q) == q, f"ssd_scan key {key}")
+        ins = ssd_inputs(*key[:5])
+        got = ssd_scan(*ins, chunk=q)
+        torch.cuda.synchronize()
+        chunked = ssd_chunked(*ins, q)[0]
+        seq_ref = ref.ssd_ref(*ins)
+        scale = chunked.abs().max().item()
+        err_chunked = close(got, chunked, 1e-4 * scale, 0.0,
+                            f"ssd_scan {key} vs ssd_chunked")
+        err = close(got, seq_ref, 1e-3 * scale, 0.0,
+                    f"ssd_scan {key} vs ssd_ref")
+        del chunked, seq_ref, got
+        flops, nbytes = shape_work("ssd_scan", key)
+        bms, bby = bound_ms(flops, nbytes, peaks)
+        measured[("ssd_scan", key)] = {
+            "ms": call_ms(lambda: ssd_scan(*ins, chunk=q)),
+            "device_ms": device_ms(lambda: ssd_scan(*ins, chunk=q)),
+            "plain_ms": call_ms(lambda: ref.ssd_ref(*ins), n=5),
+            "chunked_ms": call_ms(lambda: ssd_chunked(*ins, q)),
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
+            "max_abs_err_chunked": err_chunked}
+        r = measured[("ssd_scan", key)]
+        log(f"[kernels] ('ssd_scan', {key}): one call: kernel "
+            f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), plain "
+            f"(ssd_ref, median of 5) {r['plain_ms']:.4f} ms, ssd_chunked "
+            f"{r['chunked_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+            f"{bms / r['device_ms']:.1%} of the bound; max abs err "
+            f"{err:.2e} vs ssd_ref, {err_chunked:.2e} vs ssd_chunked (|y| "
+            f"up to {scale:.1f})")
+        return ins
+
+    # (d) ssd_scan at the Mamba-2-130M prefill shape
     mcfg = get_arch(MAMBA).model
     sc = mcfg.ssm
     heads = sc.expand * mcfg.d_model // sc.head_dim
     ssd_key = (MAMBA_BATCH, MAMBA_SEQ, heads, sc.head_dim, sc.d_state,
                chunk_len(MAMBA_SEQ, sc.chunk))
-    ins = ssd_inputs(*ssd_key[:5])
-    got = ssd_scan(*ins, chunk=sc.chunk)
-    torch.cuda.synchronize()
-    chunked = ssd_chunked(*ins, sc.chunk)[0]
-    seq_ref = ref.ssd_ref(*ins)
-    scale = chunked.abs().max().item()
-    err_chunked = close(got, chunked, 1e-4 * scale, 0.0,
-                        f"ssd_scan {ssd_key} vs ssd_chunked")
-    err = close(got, seq_ref, 1e-3 * scale, 0.0,
-                f"ssd_scan {ssd_key} vs ssd_ref")
-    del chunked, seq_ref
-    flops, nbytes = shape_work("ssd_scan", ssd_key)
-    bms, bby = bound_ms(flops, nbytes, peaks)
-    measured[("ssd_scan", ssd_key)] = {
-        "ms": call_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
-        "device_ms": device_ms(lambda: ssd_scan(*ins, chunk=sc.chunk)),
-        "plain_ms": call_ms(lambda: ref.ssd_ref(*ins), n=5),
-        "chunked_ms": call_ms(lambda: ssd_chunked(*ins, sc.chunk)),
-        "library_ms": None, "bound_ms": bms, "bound_by": bby,
-        "max_abs_err": err, "max_abs_err_chunked": err_chunked}
+    ins = measure_ssd(ssd_key)
     r = measured[("ssd_scan", ssd_key)]
-    log(f"[kernels] ('ssd_scan', {ssd_key}): one call: kernel "
-        f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), plain "
-        f"(ssd_ref, median of 5) {r['plain_ms']:.4f} ms, ssd_chunked "
-        f"{r['chunked_ms']:.4f} ms, bound {bms:.4f} ms ({bby}, "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
-        f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s; max abs err {err:.2e} vs "
-        f"ssd_ref, {err_chunked:.2e} vs ssd_chunked (|y| up to {scale:.1f})")
+    bms = r["bound_ms"]
 
     # the passes: what each left in the workspace against its plain
     # statement on the same inputs (f32 order of the sums only: within
@@ -1460,7 +1871,7 @@ def main() -> int:
         f"bound in device time (events); each pass's output held against "
         f"its plain statement within 1e-4 of its scale: max abs err "
         f"{ {k: f'{v:.2e}' for k, v in pass_err.items()} }")
-    del ins, got, w
+    del ins, w
 
     # ---- 4. executors: GPT-Neo-S streamed vs preloaded --------------------
     cfg_s = get_arch("gptneo-s").model
@@ -2067,7 +2478,7 @@ def main() -> int:
         f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
         f"launches {dict(dense_shapes)} ({dcfg.num_layers} a request)")
     prof_wall, split, _, rest, busy, _ = profiled_call(
-        lambda: dpre.fn(dparams, {"tokens": req["last"]}))
+        lambda: dpre.fn(dparams, req["last"]))
     check(split["flash_attention"] > 0,
           "the profiler saw no flash_attention in a prefill")
     warm = min(walls[1:])
@@ -2127,6 +2538,18 @@ def main() -> int:
     moe_out = moe_phase(dev, env, smi)
     moe_shapes = moe_out["shapes"]
     for shape in moe_shapes:
+        if shape not in measured:
+            measure(shape)
+
+    # ---- 7d. Jamba-v0.1-52B, 16 layers (the hybrid family) ---------------
+    hybrid_out = hybrid_phase(dev, env, smi)
+    hybrid_shapes = hybrid_out["shapes"]
+
+    # ---- 7e. Whisper-small (the enc-dec family) ---------------------------
+    encdec_out = encdec_phase(dev, env, smi)
+    encdec_shapes = encdec_out["shapes"]
+    # the new paths' kernel shapes against their plain versions, timed
+    for shape in sorted(set(hybrid_shapes) | set(encdec_shapes), key=str):
         if shape not in measured:
             measure(shape)
 
@@ -2246,9 +2669,11 @@ def main() -> int:
     # each kernel's launches by shape on its path: serving (phase 5), the
     # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the Yi-6B
     # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
-    # (phase 7c), the pack pass (phase 8)
+    # (phase 7c), the Jamba prefill requests (phase 7d), the Whisper-small
+    # prefill requests (phase 7e), the pack pass (phase 8)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
-        dense_shapes + moe_shapes + pack_shapes
+        dense_shapes + moe_shapes + hybrid_shapes + encdec_shapes + \
+        pack_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -2298,7 +2723,11 @@ def main() -> int:
         f"{dense_consist_err:.2e}; Qwen3-30B-A3B prefill vs plain "
         f"{moe_out['plain_err']:.2e}, decode vs prefill "
         f"{moe_out['consist_err']:.2e}, MoE block gather vs dense "
-        f"{moe_out['block_err']:.2e}; "
+        f"{moe_out['block_err']:.2e}; Jamba (16 layers) prefill vs plain "
+        f"{hybrid_out['plain_err']:.2e}, decode vs prefill "
+        f"{hybrid_out['consist_err']:.2e}; Whisper-small prefill vs plain "
+        f"{encdec_out['plain_err']:.2e}, decode vs prefill "
+        f"{encdec_out['consist_err']:.2e}; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -2,9 +2,8 @@
 its inputs, and the real tensors for tests and the smoke run.
 
 The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
-kinds of the SSM, dense and MoE families (and of a dense stack whose
-``moe`` config makes its FFN an MoE block). ``train`` waits for the
-training slice, and the hybrid and enc-dec families for their own
+kinds of the SSM, dense, MoE and hybrid families (``transformer``) and of
+the enc-dec family (``encdec``). ``train`` waits for the training slice
 (``ROADMAP.md`` §1);
 ``lower_step`` is the dry-run's XLA lowering and waits with
 ``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
@@ -23,25 +22,18 @@ from repro_torch.configs.base import ArchConfig, ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import MeshEnv, ParamSpec
-from repro_torch.models import transformer
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """The SSM, dense and MoE families run; the hybrid family raises in
-    ``transformer`` and the enc-dec family here, each naming its slice."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the enc-dec family (Whisper) is not ported yet; see ROADMAP.md "
-            "§1 for its slice")
+from repro_torch.models import encdec, transformer
 
 
 def param_specs(cfg: ModelConfig):
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec.param_specs(cfg)
     return transformer.param_specs(cfg)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec.cache_specs(cfg, batch, cache_len)
     return transformer.cache_specs(cfg, batch, cache_len)
 
 
@@ -98,9 +90,10 @@ class StepBundle:
 
 def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
                      attn_mode: str = "paired") -> StepBundle:
-    """The step of ``shape.kind``. A prefill batch carries ``tokens``, or
-    ``embeds`` and ``positions`` for the vision stub; decode takes ``pos``
-    [B] ([3,B] under M-RoPE).
+    """The step of ``shape.kind``. A prefill batch carries ``tokens``,
+    ``embeds`` and ``positions`` for the vision stub, or ``frames`` and
+    ``tokens`` for the audio stub (enc-dec); decode takes ``pos`` [B]
+    ([3,B] under M-RoPE).
 
     ``attn_mode`` is one of ``ATTN_MODES`` and computes the same prefill
     in each: the block-grid schedules leave the function unchanged, and
@@ -120,16 +113,23 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
     pspecs = param_specs(cfg)
 
     if shape.kind == "prefill":
-        def fn(params, batch):
-            return transformer.prefill(
-                cfg, run, env, params, batch.get("tokens"),
-                embeds=batch.get("embeds"), positions=batch.get("positions"))
+        if cfg.family == "encdec":
+            def fn(params, batch):
+                return encdec.prefill(cfg, run, env, params, batch)
+        else:
+            def fn(params, batch):
+                return transformer.prefill(
+                    cfg, run, env, params, batch.get("tokens"),
+                    embeds=batch.get("embeds"),
+                    positions=batch.get("positions"))
         return StepBundle(fn=fn, arg_specs=(
             pspecs, batch_specs(cfg, shape, train=False)))
 
+    step = encdec.decode_step if cfg.family == "encdec" \
+        else transformer.decode_step
+
     def fn(params, cache, tokens, pos):
-        return transformer.decode_step(cfg, run, env, params, cache, tokens,
-                                       pos)
+        return step(cfg, run, env, params, cache, tokens, pos)
     dspecs = decode_input_specs(cfg, shape)
     return StepBundle(fn=fn, arg_specs=(pspecs, dspecs["cache"],
                                         dspecs["tokens"], dspecs["pos"]))

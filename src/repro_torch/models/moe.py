@@ -33,7 +33,10 @@ Three places where PyTorch differs from jnp, handled here:
   ascending expert order. ``index_add_`` on CUDA adds with atomics, whose
   order changes from run to run. The combine inverts the slot map to
   ``[B, S, k]`` and adds the k terms in ascending slot order, so two runs
-  agree bit for bit and the f32 sum order is the reference's.
+  agree bit for bit and the f32 sum order is the reference's. Where the
+  reference adds a missing slot into a pad row of its output, the combine
+  reads a zero row after the expert outputs, so a non-finite expert row
+  stays with its own token.
 """
 from __future__ import annotations
 
@@ -134,9 +137,10 @@ def _dispatch_group(m, tg: int, c: int, d: int, x: torch.Tensor,
     return xe.view(e, b * c, d), idx, gate, keep.sum(dim=-1)
 
 
-def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor) -> torch.Tensor:
+def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor,
+                out: torch.Tensor = None) -> torch.Tensor:
     """xe: [E, R, d] -> [E, R, d] through each expert's FFN, in the dtype
-    jnp's promotion gives (bf16 on bf16 weights)."""
+    jnp's promotion gives (bf16 on bf16 weights), into ``out`` if given."""
     dt = torch.promote_types(xe.dtype, p["wi"].dtype)
     xe = xe.to(dt)
     h = torch.bmm(xe, p["wi"].to(dt))
@@ -145,13 +149,14 @@ def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor) -> torch.Tensor:
         h = activation(cfg, g) * h
     else:
         h = activation(cfg, h)
-    return torch.bmm(h, p["wo"].to(dt))
+    return torch.bmm(h, p["wo"].to(dt), out=out)
 
 
-def _combine_group(m, tg: int, c: int, d: int, ye: torch.Tensor,
+def _combine_group(m, tg: int, c: int, d: int, ye_rows: torch.Tensor,
                    idx: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """ye [E, B*C, d] (``_dispatch_group``'s layout), idx/gate [B, E*C] ->
-    y [B, tg, d] f32: each token's gated expert outputs, added to zeros in
+    """ye_rows [E*B*C + 1, d]: the expert outputs in ``_dispatch_group``'s
+    layout, expert by expert, then one zero row; idx/gate [B, E*C] -> y
+    [B, tg, d] f32: each token's gated expert outputs, added to zeros in
     ascending slot order without atomics, one slot column at a time (no
     [B, tg, k, d] temporary)."""
     b, k = idx.shape[0], m.top_k
@@ -163,17 +168,18 @@ def _combine_group(m, tg: int, c: int, d: int, ye: torch.Tensor,
     dest = torch.where(valid, stok * k + rank, tg * k)
     inv = _scatter_kept(tg * k, dest, sslot, 0)           # [B, tg*k] slots
     has = _scatter_kept(tg * k, dest, valid, False)
-    # a column with no slot reads slot 0 with a zero gate: it adds 0 for a
-    # finite row
-    g = torch.where(has, torch.gather(gate, 1, inv), 0.0).view(b, tg, k, 1)
+    g = torch.gather(gate, 1, inv).view(b, tg, k, 1)
     rows = (inv // c) * (b * c) + \
         torch.arange(b, device=idx.device).view(b, 1) * c + inv % c
+    # a column with no slot reads the zero row, so it adds 0 and a
+    # non-finite expert row reaches no other token (0 x NaN is NaN; the
+    # JAX package adds a missing slot into a pad row that it cuts off)
+    rows = torch.where(has, rows, ye_rows.shape[0] - 1)
     rows = rows.view(b * tg, k).T.contiguous()            # [k, B*tg]
-    ye2d = ye.reshape(-1, d)
-    y = torch.zeros((b, tg, d), dtype=torch.float32, device=ye.device)
+    y = torch.zeros((b, tg, d), dtype=torch.float32, device=ye_rows.device)
     for j in range(k):
         # bf16 rows times the f32 gate: one f32 product, exact widening
-        y += ye2d.index_select(0, rows[j]).view(b, tg, d) * g[:, :, j]
+        y += ye_rows.index_select(0, rows[j]).view(b, tg, d) * g[:, :, j]
     return y
 
 
@@ -200,8 +206,13 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, env: MeshEnv,
     c = capacity(s, m.n_experts, m.top_k, m.capacity_factor)
     xe, idx, gate, kept = _dispatch_group(
         m, s, c, d, x, w.view(b, s, m.top_k), ids.view(b, s, m.top_k))
-    ye = _expert_ffn(cfg, p, xe)
-    y = _combine_group(m, s, c, d, ye, idx, gate)
+    # the expert outputs and one zero row after them, for the combine
+    rows = b * c * m.n_experts
+    ye_rows = torch.empty((rows + 1, d), device=x.device, dtype=
+                          torch.promote_types(xe.dtype, p["wo"].dtype))
+    ye_rows[rows:].zero_()
+    _expert_ffn(cfg, p, xe, out=ye_rows[:rows].view(m.n_experts, b * c, d))
+    y = _combine_group(m, s, c, d, ye_rows, idx, gate)
     aux["dropped_frac"] = 1.0 - torch.sum(kept) / (t * m.top_k)
     return y.to(x.dtype), aux
 

@@ -1,18 +1,21 @@
 """Decoder-only LM: the SSM family (Mamba-2), the dense family (GQA
-attention with RoPE, M-RoPE or a learned position table) and the MoE
-family (attention with a mixture-of-experts FFN, ``models.moe``).
+attention with RoPE, M-RoPE or a learned position table), the MoE family
+(attention with a mixture-of-experts FFN, ``models.moe``) and the hybrid
+family (Jamba: Mamba-2 and attention layers in a period, MoE on every
+other layer).
 
 The JAX package's ``repro.models.transformer`` with its per-layer
 ``jax.lax.scan`` over the stacked ``blocks`` written as a Python loop over
 the layer index: layer ``i`` takes ``[i]`` of every stacked tensor, so the
 parameter tree keeps the stacked layout and JAX weights carry across leaf
-for leaf. Prefill runs each attention layer through the ``flash_attention``
-kernel on the card (``models.attention``); decode keeps a stacked KV cache.
-An MoE block (every layer of the ``moe`` family, or of a dense stack whose
-``moe`` config makes its FFN one) runs ``moe.apply_moe``, and ``forward``
-sums its ``lb_loss`` and ``z_loss`` over the layers. The ``hybrid`` family
-raises ``NotImplementedError`` until its slice (``ROADMAP.md`` §1), and
-``loss_fn`` comes with the training slice.
+for leaf. The hybrid family keeps that package's per-layer ``layers`` tree
+keyed ``str(i)`` and its unrolled loop, with a per-layer decode cache (a KV
+cache or an SSM state). Prefill runs each attention layer through the
+``flash_attention`` kernel on the card (``models.attention``) and each
+Mamba-2 layer through ``ssd_scan`` (``models.ssm``); decode keeps a KV
+cache. An MoE block runs ``moe.apply_moe``, and ``forward`` sums its
+``lb_loss`` and ``z_loss`` over the layers. ``loss_fn`` comes with the
+training slice.
 """
 from __future__ import annotations
 
@@ -26,13 +29,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dot, mlp_specs,
                                        norm_specs)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's model path carries the SSM, "
-        f"dense and MoE families; see ROADMAP.md §1 for the slice that adds "
-        f"it")
 
 
 # ---------------------------------------------------------------------------
@@ -55,8 +51,6 @@ def _block_specs(cfg: ModelConfig, kind: str, is_moe: bool,
 
 
 def _stacked_block_specs(cfg: ModelConfig) -> dict:
-    if cfg.family == "hybrid":
-        raise _not_ported("the hybrid family")
     return _block_specs(cfg, cfg.layer_kinds()[0], cfg.layer_is_moe(0),
                         prefix_layers=(cfg.num_layers,))
 
@@ -73,7 +67,13 @@ def param_specs(cfg: ModelConfig) -> dict:
     if cfg.rope == "none" and cfg.family in ("dense",):
         specs["pos_embed"] = ParamSpec((8192, cfg.d_model), torch.bfloat16,
                                        ("pos", "embed"), scale=0.02)
-    specs["blocks"] = _stacked_block_specs(cfg)
+    if cfg.family == "hybrid":
+        kinds = cfg.layer_kinds()
+        specs["layers"] = {str(i): _block_specs(cfg, kinds[i],
+                                                cfg.layer_is_moe(i))
+                           for i in range(cfg.num_layers)}
+    else:
+        specs["blocks"] = _stacked_block_specs(cfg)
     return specs
 
 
@@ -152,25 +152,34 @@ def logits_fn(cfg: ModelConfig, params, x, env: MeshEnv):
 
 def _layer_loop(cfg: ModelConfig, env: MeshEnv, params, x, *, mode: str,
                 positions=None, cache=None, pos=None):
-    """The JAX ``lax.scan`` over the stacked blocks, as a loop. Returns
-    (x, the per-layer caches stacked or None, the layers' ``lb_loss`` and
-    ``z_loss`` summed)."""
-    layer_specs = strip_layer_axis(_stacked_block_specs(cfg))
-    kind, is_moe = cfg.layer_kinds()[0], cfg.layer_is_moe(0)
+    """The JAX ``lax.scan`` over the stacked blocks, or its unrolled loop
+    over the hybrid family's ``layers``. Returns (x, the per-layer caches
+    (stacked, or keyed ``str(i)`` for the hybrid family) or None, the
+    layers' ``lb_loss`` and ``z_loss`` summed)."""
+    hybrid = cfg.family == "hybrid"
+    if not hybrid:
+        layer_specs = strip_layer_axis(_stacked_block_specs(cfg))
+    kinds = cfg.layer_kinds()
     caches, aux_sum = [], _moe_aux_zero(x.device)
     for i in range(cfg.num_layers):
-        p_layer = constrain_params(_layer(params["blocks"], i), layer_specs,
-                                   env)
-        x, nc, aux = _apply_block(cfg, env, p_layer, x, positions, kind=kind,
-                                  is_moe=is_moe, mode=mode,
-                                  cache=None if cache is None
-                                  else _layer(cache, i), pos=pos)
+        if hybrid:
+            p_layer = params["layers"][str(i)]
+            c_layer = None if cache is None else cache[str(i)]
+        else:
+            p_layer = constrain_params(_layer(params["blocks"], i),
+                                       layer_specs, env)
+            c_layer = None if cache is None else _layer(cache, i)
+        x, nc, aux = _apply_block(cfg, env, p_layer, x, positions,
+                                  kind=kinds[i], is_moe=cfg.layer_is_moe(i),
+                                  mode=mode, cache=c_layer, pos=pos)
         caches.append(nc)
         for k in aux_sum:
             if k in aux:
                 aux_sum[k] = aux_sum[k] + aux[k]
     if cache is None:
         return x, None, aux_sum
+    if hybrid:
+        return x, {str(i): c for i, c in enumerate(caches)}, aux_sum
     return x, tree_map(lambda *ts: torch.stack(ts), caches[0],
                        *caches[1:]), aux_sum
 
@@ -211,10 +220,14 @@ def forward(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, tokens,
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
-    """Decode-state specs, stacked over the layers."""
+    """Decode-state specs: stacked over the layers, or per layer (keyed
+    ``str(i)``: a KV cache or an SSM state) for the hybrid family."""
+    kinds = cfg.layer_kinds()
     if cfg.family == "hybrid":
-        raise _not_ported("the hybrid family")
-    if cfg.layer_kinds()[0] == "attn":
+        return {str(i): attn.cache_specs(cfg, batch, cache_len)
+                if kind == "attn" else ssm_mod.ssm_state_specs(cfg, batch)
+                for i, kind in enumerate(kinds)}
+    if kinds[0] == "attn":
         return attn.cache_specs(cfg, batch, cache_len, (cfg.num_layers,))
     return ssm_mod.ssm_state_specs(cfg, batch, (cfg.num_layers,))
 

@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernels against their plain versions, the
-copy-stream path, the executors and the Mamba-2, dense and MoE model
-paths. Every test needs an NVIDIA card
+copy-stream path, the executors and the Mamba-2, dense, MoE, hybrid and
+enc-dec model paths. Every test needs an NVIDIA card
 (``cuda`` marker) and skips without one; the file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
@@ -82,7 +82,7 @@ def _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
                          q_scale=1.0):
     """The bf16 kernel against its plain version at the checks of
     test_flash_attention_kernel: 2e-2 max abs, then one bf16 ulp above a
-    floor for outputs near zero."""
+    floor for outputs near zero. Returns both outputs."""
     from repro_torch.kernels.flash_attention import flash_attention
     rng = np.random.default_rng(sq + sk + hq + hd)
     q = _normal(rng, (b, sq, hq, hd), q_scale).to(dev, torch.bfloat16)
@@ -95,6 +95,7 @@ def _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
                                rtol=2 ** -7)
+    return got, want
 
 
 # the Yi-6B head layout at length, a ragged GQA group of 8 under every
@@ -108,6 +109,25 @@ def _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
 def test_flash_attention_bf16_shapes(dev, b, sq, sk, hq, hkv, hd, causal,
                                      window):
     _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window)
+
+
+# the launch keys of a Whisper-small prefill of 8 x 448 tokens over 1500
+# frames (12 heads of 64: the encoder's bidirectional attention, the
+# decoder's causal self-attention, its cross-attention; neither length is
+# a multiple of the 64-key tile) and of a Jamba prefill of 2 x 4096 (32
+# query heads over 8 KV heads of 128, no positions)
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal", [
+    (8, 1500, 1500, 12, 12, 64, False), (8, 448, 448, 12, 12, 64, True),
+    (8, 448, 1500, 12, 12, 64, False), (2, 4096, 4096, 32, 8, 128, True)],
+    ids=["whisper-encoder", "whisper-self", "whisper-cross", "jamba"])
+def test_flash_attention_bf16_at_the_hybrid_and_encdec_keys(
+        dev, b, sq, sk, hq, hkv, hd, causal):
+    """At one bf16 ulp as test_flash_attention_bf16_shapes, and within 1%
+    relative L2 over the whole output, which a key tile left out (or a
+    ragged tile's tail read as keys) would break."""
+    got, want = _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, 0)
+    got, want = got.float(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 1e-2
 
 
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,hd", [
@@ -325,7 +345,7 @@ def test_ssd_scan_rows_do_not_depend_on_the_batch(dev):
     assert torch.equal(full[1:2], one)
 
 
-def _swing_inputs(dev, swing_heads=(1, 4)):
+def _swing_inputs(dev, swing_heads=(1, 4), shape=(2, 512, 6, 64, 128)):
     """Positive x, b and c at the model's chunk (256); in chunk 1 of batch
     row 0, for ``swing_heads``, dt a takes both signs: L rises by 84 nats
     over the chunk's first 64 steps and falls back over the next 16, so
@@ -334,7 +354,7 @@ def _swing_inputs(dev, swing_heads=(1, 4)):
     summed over n: past the f32 range. c is zero on the rows where L is
     above 20, so the reference's rows there stay finite."""
     rng = np.random.default_rng(16)
-    b, s, h, p, n, q = 2, 512, 6, 64, 128, 256
+    (b, s, h, p, n), q = shape, 256
     x = rng.uniform(0.5, 1.5, (b, s, h, p))
     bb, cc = rng.uniform(1, 2, (b, s, n)), rng.uniform(1, 2, (b, s, n))
     dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
@@ -384,6 +404,38 @@ def test_ssd_scan_monotone_heads_are_unchanged_by_a_swinging_group(dev):
     got = ssd_scan(x, dt2, a2, bb, cc, d, chunk=256)
     torch.cuda.synchronize()
     assert torch.equal(got[:, :, :4], calm[:, :, :4])
+
+
+def test_ssd_scan_at_the_jamba_prefill_shape(dev):
+    """Jamba's Mamba-2 mixer at a 2 x 4096 prefill (128 heads of 64,
+    d_state 16, chunk 256) against the chunked form the CPU path runs
+    (within 1e-4 of y's scale) and the sequential recurrence (1e-3)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+    ins = _ssd_inputs(np.random.default_rng(22), 2, 4096, 128, 64, 16, dev)
+    got = ssd_scan(*ins, chunk=256)
+    want = ssd_chunked(*ins, 256)[0]
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+    torch.testing.assert_close(got, ref.ssd_ref(*ins), atol=1e-3 * scale,
+                               rtol=0)
+
+
+def test_ssd_scan_at_the_jamba_heads_with_a_non_monotone_decay(dev):
+    """Jamba's head shape (128 heads of 64, d_state 16) with dt a of both
+    signs in a chunk in heads 5 and 70 (test_ssd_scan_with_a_non_monotone
+    _decay's swing): held against the recurrence where it is finite."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ins = _swing_inputs(dev, swing_heads=(5, 70), shape=(2, 512, 128, 64,
+                                                         16))
+    got = ssd_scan(*ins, chunk=256)
+    want = ref.ssd_ref(*ins)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert finite[0, 256 + 76:256 + 128, [5, 70]].all()
+    torch.testing.assert_close(got[finite], want[finite], atol=2e-3,
+                               rtol=1e-3)
 
 
 def test_fleet_of_two_replicas_on_one_card(dev):
@@ -704,3 +756,119 @@ def test_moe_gather_is_bit_for_bit_repeatable_on_the_card(dev):
     y2, aux2 = moe.apply_moe(cfg, p, x, env)
     assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
     assert float(aux1["dropped_frac"]) == float(aux2["dropped_frac"])
+
+
+def test_hybrid_prefill_and_decode_on_the_card(dev):
+    """The reduced Jamba (one period: 7 Mamba-2 layers, attention at index
+    4, MoE on the odd layers) through the model path on the card, f32
+    parameters and cache: ``ssd_scan`` in each Mamba-2 layer and
+    ``flash_attention`` in the attention layer of the prefill, none in
+    decode, against the same bundle on the CPU (routes equal, logits
+    within 1e-3)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model, moe
+    cfg = get_arch("jamba-v0.1-52b").model.reduced()
+    arch = ArchConfig(model=cfg)
+    seq, batch, steps = 96, 2, 4
+    gen = torch.Generator().manual_seed(0)
+    params, cache, _, _ = model.init_inputs(model.make_step_bundle(
+        arch, ShapeConfig("d", seq, batch, "decode"),
+        make_host_mesh(device="cpu")), gen, "cpu")
+    params, cache = (tree_map(lambda t: t.float(), tree)
+                     for tree in (params, cache))
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    out = {}
+    for where in ("cpu", dev):
+        env = make_host_mesh(device=where)
+        pre = model.make_step_bundle(arch, ShapeConfig("p", seq, batch,
+                                                       "prefill"), env)
+        dec = model.make_step_bundle(arch, ShapeConfig("d", seq, batch,
+                                                       "decode"), env)
+        p = tree_map(lambda t: t.to(where), params)
+        c = tree_map(lambda t: t.to(where), cache)
+        routes = []
+        ops.reset_launch_counts()
+        with mock.patch.object(moe, "_router", _routing(routes)):
+            logits = pre.fn(p, {"tokens": toks.to(where)})
+            counted = dict(ops.launch_counts())
+            for t in range(steps):
+                step, c = dec.fn(p, c, toks[:, t:t + 1].to(where),
+                                 torch.full((batch,), t, dtype=torch.int32,
+                                            device=where))
+        assert dict(ops.launch_counts()) == counted
+        out[str(where)] = (logits.cpu(), step.cpu(), counted, routes)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert sum(cpu[2].values()) == 0
+    assert card[2]["ssd_scan"] == 7 and card[2]["flash_attention"] == 1
+    assert len(card[3]) == 4 * (1 + steps)
+    assert all(torch.equal(a, b) for a, b in zip(card[3], cpu[3]))
+    for i in (0, 1):
+        torch.testing.assert_close(card[i], cpu[i], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_encdec_prefill_and_decode_on_the_card(dev, f32):
+    """The reduced Whisper (2 encoder and 4 decoder layers over 32 frames)
+    through the model path on the card: per prefill one
+    ``flash_attention`` launch a layer for the encoder (bidirectional),
+    two a decoder layer (causal self-attention, cross-attention of 24
+    queries over 32 keys), none in decode, against the same bundle on the
+    CPU. Logits within 1e-3 with f32 parameters and cache, within 0.1 in
+    bf16 (tests/test_torch_encdec.py's bound)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    cfg = get_arch("whisper-small").model.reduced()
+    arch = ArchConfig(model=cfg)
+    seq, batch, steps, t_enc = 24, 2, 4, cfg.encoder_seq
+    dt = torch.float32 if f32 else torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    params, cache, _, _ = model.init_inputs(model.make_step_bundle(
+        arch, ShapeConfig("d", seq, batch, "decode"),
+        make_host_mesh(device="cpu")), gen, "cpu")
+    frames = torch.randn((batch, t_enc, cfg.d_model), generator=gen).to(dt)
+    if f32:
+        params, cache = (tree_map(lambda t: t.float(), tree)
+                         for tree in (params, cache))
+    cache["cross_k"] = torch.randn(cache["cross_k"].shape, generator=gen
+                                   ).to(cache["cross_k"].dtype)
+    cache["cross_v"] = torch.randn(cache["cross_v"].shape, generator=gen
+                                   ).to(cache["cross_v"].dtype)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    out = {}
+    for where in ("cpu", dev):
+        env = make_host_mesh(device=where)
+        pre = model.make_step_bundle(arch, ShapeConfig("p", seq, batch,
+                                                       "prefill"), env)
+        dec = model.make_step_bundle(arch, ShapeConfig("d", seq, batch,
+                                                       "decode"), env)
+        p = tree_map(lambda t: t.to(where), params)
+        c = tree_map(lambda t: t.to(where), cache)
+        ops.reset_launch_counts()
+        logits = pre.fn(p, {"frames": frames.to(where),
+                            "tokens": toks.to(where)})
+        counted = ops.launch_counts_by_shape()["flash_attention"]
+        for t in range(steps):
+            step, c = dec.fn(p, c, toks[:, t:t + 1].to(where),
+                             torch.full((batch,), t, dtype=torch.int32,
+                                        device=where))
+        assert ops.launch_counts_by_shape()["flash_attention"] == counted
+        out[str(where)] = (logits.cpu(), step.cpu(), counted)
+    cpu, card = out["cpu"], out[str(dev)]
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    assert cpu[2] == {} and card[2] == {
+        (batch, t_enc, t_enc, h, h, hd, False, 0, dt): cfg.encoder_layers,
+        (batch, seq, seq, h, h, hd, True, 0, dt): cfg.num_layers,
+        (batch, seq, t_enc, h, h, hd, False, 0, dt): cfg.num_layers}
+    for i in (0, 1):
+        torch.testing.assert_close(card[i], cpu[i],
+                                   atol=1e-3 if f32 else 0.1, rtol=0)

@@ -469,14 +469,18 @@ def test_decode_from_zero_cache_matches_prefill(f32):
 
 @pytest.mark.parametrize("what", ["train", "hybrid", "encdec"])
 def test_unported_paths_raise(what):
-    """The paths of later slices raise, naming the roadmap."""
+    """The training step of each family (the SSM, hybrid and enc-dec
+    families here) waits for the training slice and raises, naming the
+    roadmap; prefill and decode of every family run
+    (tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
     env = make_host_mesh(device=CPU)
     names = {"hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
              "train": "mamba2-130m"}
     cfg = get_arch(names[what]).model.reduced()
     arch = ArchConfig(model=cfg)
-    kind = "train" if what == "train" else "prefill"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, "train"), env)
+    for kind in ("prefill", "decode"):
         tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, kind), env)
 
 

@@ -27,6 +27,7 @@ gather equals dense at a capacity that drops nothing, dropped tokens pass
 through as zero, and no token crosses its batch row.
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -157,10 +158,16 @@ def test_dispatch_and_combine_match_jax(b, s, e, k, cf, skew):
         jcfg.moe, s, c, d, yr, ir, gr))(jnp.asarray(ye), jidx, jgate)
     got = moe._combine_group(
         tcfg.moe, s, c, d,
-        torch.from_numpy(ye).transpose(0, 1).reshape(e, b * c, d), tidx,
-        tgate)
+        _with_zero_row(torch.from_numpy(ye).transpose(0, 1)), tidx, tgate)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+def _with_zero_row(ye):
+    """Expert outputs [E, B*C, d] as the combine reads them: [E*B*C, d] and
+    one zero row after."""
+    rows = ye.reshape(-1, ye.shape[-1])
+    return torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
 
 
 @pytest.mark.parametrize("mode", ["gather", "dense"])
@@ -260,3 +267,95 @@ def test_apply_moe_refuses_an_unknown_mode():
     with pytest.raises(ValueError, match="mode"):
         moe.apply_moe(tcfg, tparams, torch.zeros(1, 8, tcfg.d_model),
                       make_host_mesh(device=CPU), mode="shardmap")
+
+
+def _combine_before_the_nan_repair(m, tg, c, d, ye, idx, gate):
+    """The combine as it was before a missing slot read a zero row (a
+    column with no slot read slot 0's row with a zero gate, and the expert
+    outputs came as [E, B*C, d]): the oracle the repaired combine must
+    equal bit for bit on finite rows."""
+    b, k = idx.shape[0], m.top_k
+    stok, sslot = torch.sort(idx, dim=-1, stable=True)
+    rank = torch.arange(idx.shape[1]) - moe._first_of_run(stok)
+    valid = stok < tg
+    dest = torch.where(valid, stok * k + rank, tg * k)
+    inv = moe._scatter_kept(tg * k, dest, sslot, 0)
+    has = moe._scatter_kept(tg * k, dest, valid, False)
+    g = torch.where(has, torch.gather(gate, 1, inv), 0.0).view(b, tg, k, 1)
+    rows = (inv // c) * (b * c) + torch.arange(b).view(b, 1) * c + inv % c
+    rows = rows.view(b * tg, k).T.contiguous()
+    ye2d = ye.reshape(-1, d)
+    y = torch.zeros((b, tg, d), dtype=torch.float32)
+    for j in range(k):
+        y += ye2d.index_select(0, rows[j]).view(b, tg, d) * g[:, :, j]
+    return y
+
+
+# the probe of a non-finite expert row: reduced Mixtral (8 experts, top-2)
+# over 1 x 32 tokens at capacity factor 0.25, 8 slots an expert, so that
+# 8 of the 64 assignments find no slot
+PROBE_B, PROBE_S, PROBE_CF = 1, 32, 0.25
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf],
+                         ids=["nan", "inf", "-inf"])
+def test_a_non_finite_expert_row_stays_with_its_token(bad):
+    """One non-finite element in the output row of expert 0's slot 0 of
+    batch row 0: the tokens it reaches, and every output, equal the JAX
+    ``apply_moe``'s (which adds a missing slot into a pad row it cuts off),
+    f32 parameters."""
+    jcfg, tcfg = _cfgs(cf=PROBE_CF)
+    params, tparams = _params(jcfg, seed=0, f32=True)
+    jx, tx = _x((PROBE_B, PROBE_S, jcfg.d_model), 0, jnp.float32)
+    jcombine, tcombine = jax_moe._combine_group, moe._combine_group
+
+    def jax_poisoned(m, tg, c, d, ye_row, idx_row, gate_row):
+        return jcombine(m, tg, c, d, ye_row.at[0, 0, 0].set(bad), idx_row,
+                        gate_row)
+
+    def port_poisoned(m, tg, c, d, ye_rows, idx, gate):
+        ye_rows = ye_rows.clone()
+        ye_rows[0, 0] = bad                   # expert 0, batch row 0, slot 0
+        return tcombine(m, tg, c, d, ye_rows, idx, gate)
+    with mock.patch.object(jax_moe, "_combine_group", jax_poisoned):
+        want, jaux = jax.jit(lambda p, x: jax_moe.apply_moe(
+            jcfg, p, x, jax_mesh()))(params, jx)
+    with mock.patch.object(moe, "_combine_group", port_poisoned):
+        got, taux = moe.apply_moe(tcfg, tparams, tx,
+                                  make_host_mesh(device=CPU))
+    n = PROBE_B * PROBE_S * jcfg.moe.top_k
+    kept = round((1 - float(taux["dropped_frac"])) * n)
+    assert kept == round((1 - float(jaux["dropped_frac"])) * n) == 56
+    got, want = _np(got)[0], _np(want)[0]
+    reached = ~np.isfinite(want).all(-1)
+    assert reached.sum() == 1             # the token held in that slot
+    np.testing.assert_array_equal(~np.isfinite(got).all(-1), reached)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, equal_nan=True, **F32_TOL)
+
+
+@pytest.mark.parametrize("cf", [1e-6, 0.25, 1.0, 8.0])
+@pytest.mark.parametrize("b,s,e,k", [(1, 32, 8, 2), (3, 64, 8, 2),
+                                     (2, 40, 16, 3)])
+def test_combine_is_bit_equal_to_the_one_before_the_nan_repair(b, s, e, k,
+                                                               cf):
+    """On finite bf16 expert rows the repaired combine equals the earlier
+    one bit for bit, at capacities that drop most, some and no
+    assignments."""
+    _, tcfg = _cfgs(e, k, cf)
+    d = tcfg.d_model
+    c = moe.capacity(s, e, k, cf)
+    rng = np.random.default_rng(b * s + e + k)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
+    ids, w = _routes(rng, b, s, e, k, skew=False)
+    _, idx, gate, kept = moe._dispatch_group(
+        tcfg.moe, s, c, d, x, torch.from_numpy(w),
+        torch.from_numpy(ids).long())
+    ye = torch.from_numpy(rng.standard_normal((e, b * c, d))
+                          .astype(np.float32)).to(torch.bfloat16)
+    got = moe._combine_group(tcfg.moe, s, c, d, _with_zero_row(ye), idx, gate)
+    want = _combine_before_the_nan_repair(tcfg.moe, s, c, d, ye, idx, gate)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if cf < 1.0:
+        assert int(kept.sum()) < b * s * k

@@ -6,7 +6,10 @@
 Inputs are Qwen3-30B-A3B's (128 experts top-8, d_model 2048, capacity
 factor 1.25), made on the card from seed 0: a random router over random
 bf16 tokens gives the routes, NEW's ``_dispatch_group`` the slot map and
-gates, random bf16 rows the expert outputs. Two shapes: a prefill of
+gates, random bf16 rows the expert outputs (handed to each version in the
+layout it reads: ``ye`` [E, B*C, d], or ``ye_rows`` [E*B*C + 1, d] with a
+zero row last, since the combine reads a zero row for a missing slot).
+Two shapes: a prefill of
 2 x 4096 tokens (320 slots an expert a row) and a decode step at batch 8
 (8 slots). Both versions must give bit-equal outputs. Each is then timed
 in turns, OLD NEW NEW OLD twice: device time (CUDA events around 20
@@ -19,6 +22,7 @@ e.g. ``git show REV:src/repro_torch/models/moe.py > build/moe_old.py``.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -55,6 +59,16 @@ def inputs(mod, cfg, b: int, s: int, gen, dev):
     return (m, s, c, d, ye, idx, gate)
 
 
+def combine_args(mod, args) -> tuple:
+    """``args`` with the expert outputs in the layout ``mod``'s combine
+    reads (its parameter ``ye`` or ``ye_rows``)."""
+    if "ye_rows" not in inspect.signature(mod._combine_group).parameters:
+        return args
+    m, s, c, d, ye, idx, gate = args
+    rows = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
+    return (m, s, c, d, rows, idx, gate)
+
+
 def peak_bytes(fn) -> int:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -81,20 +95,23 @@ def main(old_path: str, new_path: str) -> int:
                           ("decode 8 x 1", (8, 1))):
         gen = torch.Generator(device=dev).manual_seed(0)
         args = inputs(mods["new"], cfg, b, s, gen, dev)
-        ys = {k: mod._combine_group(*args) for k, mod in mods.items()}
+        args = {k: combine_args(mod, args) for k, mod in mods.items()}
+        ys = {k: mod._combine_group(*args[k]) for k, mod in mods.items()}
         cs.check(torch.equal(cs.bits(ys["old"]), cs.bits(ys["new"])),
                  f"{label}: the two combines differ")
         del ys
         reads = {k: {"device_ms": [], "call_ms": [], "peak_mb": []}
                  for k in mods}
         for k in ("old", "new", "new", "old") * 2:
-            fn = (lambda mod: lambda: mod._combine_group(*args))(mods[k])
+            fn = (lambda mod, a: lambda: mod._combine_group(*a))(mods[k],
+                                                                args[k])
             reads[k]["device_ms"].append(cs.device_ms(fn))
             reads[k]["call_ms"].append(cs.call_ms(fn))
             reads[k]["peak_mb"].append(peak_bytes(fn) / 1e6)
         med = {k: {q: float(np.median(v)) for q, v in r.items()}
                for k, r in reads.items()}
-        cs.log(f"[combine] {smi}: {label} (capacity {args[2]}): bit-equal; "
+        cs.log(f"[combine] {smi}: {label} (capacity {args['new'][2]}): "
+               f"bit-equal; "
                + "; ".join(f"{k}: device " + ", ".join(
                    f"{t:.4f}" for t in r["device_ms"]) + " ms, one call "
                    + ", ".join(f"{t:.4f}" for t in r["call_ms"])
