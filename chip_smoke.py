@@ -58,7 +58,21 @@ executors, then drives each path through the port's own entry points:
   self-attention, cross-attention), one more under the profiler, and
   decode at batch 8;
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
-  bf16 (``layout_pack``).
+  bf16 (``layout_pack``);
+* training (phase 9): the ``flash_attention`` backward kernel against
+  autograd of its plain version at every key a training path runs, a
+  window and an f32 case, two runs bit-equal; Yi-6B at full width and 16
+  of its 32 layers (bf16, f32 AdamW moments, random weights from a seed),
+  three steps of 8 x 4096 tokens from ``SyntheticLMStream`` in 4
+  microbatches with remat through ``make_train_step`` (128 forward and 64
+  backward ``flash_attention`` launches a step, no plain attention) and
+  one more under the profiler (forward, backward, matmuls, AdamW, the
+  rest, idle); the step at 2 layers and 2 x 512 through the kernels
+  against it through the plain versions over 4 seeds, two kernel runs
+  bit-equal, one step with int8 compression; Whisper-small at full size,
+  one step of 8 x (1500 frames, 448 tokens); a checkpoint round trip
+  (step 3 after restoring step 2 bit-equal to the uninterrupted run); and
+  one step of ``python -m repro_torch.launch.train --smoke``.
 
 The launch counts are set to 0 just before each path and read just after;
 on the serving and fleet paths they must equal the graphs' counts over
@@ -108,6 +122,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -231,6 +246,35 @@ ENCDEC_DECODE_BATCH, ENCDEC_DECODE_STEPS = 8, 16
 # --phase encdec; 7 is the phase's) read at most 0.0059 max abs (1.5 bf16
 # ulps at 0.5) and 0.98% relative L2; the checks allow 2.5x and 2x that
 ENCDEC_LOGIT_ATOL, ENCDEC_LOGIT_REL_L2 = 0.015, 0.02
+# phase 9, training. Yi-6B at full width and 16 of its 32 layers: at 12
+# bytes a parameter (bf16 weights and gradients, f32 AdamW moments) 16
+# layers are 3.29B parameters and 39.5 GB, with the f32 accumulators of 4
+# microbatches (13.2 GB) about 53 GB before activations; all 32 layers
+# are 6.06B and 72.7 GB before activations, too close to the 80 GB card
+TRAIN_LAYERS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_SEED = 8, 4096, 2, 3, 8
+# the step through the kernels against it through the plain versions, at
+# full width and 2 layers (2 x 512, bf16): the kernel and the plain
+# version round attention's output and gradients to bf16 at other places,
+# and the layers carry it on. On an H100 80GB HBM3 at 700 W seeds 8-11
+# read losses within 2.6e-5 relative and the worst gradient leaf within
+# 8.2e-3 to 8.8e-3 relative L2; the gradient check allows about 2.3x that
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 2, 512
+CHECK_SEEDS = (8, 9, 10, 11)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 2e-2
+# the backward kernel against autograd of the plain version in f32 on the
+# same inputs: bf16 outputs round once, and D = rowsum(dO O) reads the
+# forward's bf16 O; f32 differs in the order of sums only
+BWD_BF16_MAX, BWD_BF16_REL_L2, BWD_F32_MAX = 2e-2, 1e-2, 1e-4
+# every key a training path runs (Yi-6B and Qwen3, Jamba's GQA group of 4,
+# Whisper's three), a window and an f32 case at a small size
+BWD_KEYS = ((2, 4096, 4096, 32, 4, 128, True, 0, torch.bfloat16),
+            (2, 4096, 4096, 32, 8, 128, True, 0, torch.bfloat16),
+            (8, 1500, 1500, 12, 12, 64, False, 0, torch.bfloat16),
+            (8, 448, 1500, 12, 12, 64, False, 0, torch.bfloat16),
+            (8, 448, 448, 12, 12, 64, True, 0, torch.bfloat16),
+            (2, 1000, 1000, 8, 2, 128, True, 256, torch.bfloat16),
+            (1, 1024, 1024, 12, 12, 64, True, 0, torch.float32))
 # a bf16 flash_attention output against its plain version: both round an
 # f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
 # above a floor for outputs near zero; the rounding alone gives a relative
@@ -256,9 +300,15 @@ MATMUL_NAMES = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 LOGIT_ATOL = 6e-2
 LOGIT_REL_L2 = 0.1
 SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in
-           ("streamed_matmul", "flash_attention", "ssd_scan", "layout_pack")}
+           ("streamed_matmul", "flash_attention", "flash_attention_bwd",
+            "ssd_scan", "layout_pack")}
+# the backward replaces no Pallas kernel: it is the gradient of the
+# function the forward's Pallas kernel computes, which the JAX package
+# takes by differentiating jnp attention; its label names no pallas_call
 REPLACES = {"streamed_matmul": "src/repro/kernels/streamed_matmul.py:66",
             "flash_attention": "src/repro/kernels/flash_attention.py:111",
+            "flash_attention_bwd":
+                "gradient of src/repro/kernels/flash_attention.py:111",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:97",
             "layout_pack": "src/repro/kernels/layout_pack.py:37"}
 
@@ -596,6 +646,54 @@ def eviction_log():
             mock.patch.object(ServingEngine, "_release_protection",
                               counted_release):
         yield events
+
+
+@contextlib.contextmanager
+def rejection_log():
+    """Records the puts the weight pool refused while it is open (pinned
+    entries filled it: the bytes stay on the device outside the pool, as
+    transients the residency counts), as (request, thread, model, bytes)
+    with ``eviction_log``'s request count and thread names; open it inside
+    ``eviction_log``."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.weight_cache import WeightCache
+    events, done = [], [0]
+    put, release = WeightCache.put, ServingEngine._release_protection
+
+    def logged_put(cache, key, value, nbytes, *a, **kw):
+        ok = put(cache, key, value, nbytes, *a, **kw)
+        if not ok:
+            by = "run" if threading.current_thread() is \
+                threading.main_thread() else "prefetch"
+            events.append((done[0], by, WeightCache._model_of(key),
+                           int(nbytes)))
+        return ok
+
+    def counted_release(engine, name):
+        release(engine, name)
+        done[0] += 1
+
+    with mock.patch.object(WeightCache, "put", logged_put), \
+            mock.patch.object(ServingEngine, "_release_protection",
+                              counted_release):
+        yield events
+
+
+def log_over_budget(tag: str, engine, budget: int, rejected) -> None:
+    """Where the pool's peak passed its budget, what the plan expected and
+    what the pool refused, before the check fails."""
+    if engine.peak_memory() <= budget:
+        return
+    by_request = Counter()
+    for req, by, model, nbytes in rejected:
+        by_request[(req, by, model)] += nbytes
+    peaks = dict(engine.multi_plan.peaks)
+    limits = {n: engine._prefetch_limit(n) for n in peaks}
+    log(f"[{tag}] pool peak {engine.peak_memory()} over the budget {budget}: "
+        f"planned peaks {peaks} B, prefetch limits {limits} B; per request "
+        f"(model, peak) "
+        f"{[(s.model, s.peak_bytes) for s in engine.stats_log]}; bytes the "
+        f"pool refused by (request, thread, model) {dict(by_request)}")
 
 
 def eviction_order(events) -> str:
@@ -1450,6 +1548,474 @@ def encdec_phase(dev, env, smi: str) -> dict:
     return {"shapes": shapes, "peak_bytes": mem, **errs}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs attention sees under its masks."""
+    total = 0
+    for q in range(sq):
+        lo, hi = 0, sk - 1
+        if causal:
+            hi = min(hi, q)
+        if window:
+            lo = max(lo, q - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def bwd_work(key) -> tuple:
+    """(FLOPs, bytes) of one ``flash_attention_bwd`` call at the forward's
+    key: 2.5 times the forward's operations on the visible pairs (dS, dQ,
+    dK, dV beside the recomputed S: the bound's count, which the kernel's
+    seven products exceed), q, k, v, o, dO read once, dq, dk, dv written
+    once and the f32 lse read once."""
+    b, sq, sk, hq, hkv, hd, causal, window, dt = key
+    pairs = visible_pairs(sq, sk, causal, window)
+    return 2.5 * 4.0 * hd * pairs * hq * b, float(dt.itemsize) * b * hd * (
+        4 * sq * hq + 4 * sk * hkv) + 4.0 * b * hq * sq
+
+
+def measure_bwd(key, peaks) -> dict:
+    """The backward kernel at ``key`` against autograd of the plain
+    version in f32 on the same inputs, bit-equal over two runs, timed
+    beside the plain version and the library (the backward of bf16 SDPA
+    through ``torch.autograd.grad`` of one SDPA output, its forward
+    outside the timing; with a window, SDPA takes the causal window as a
+    boolean ``attn_mask``). One call between CUDA
+    events (median of 5) and device time (events around 5 back-to-back
+    calls, median of 3 rounds): a call at the big keys takes tens of
+    ms."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import forward_with_lse
+    b, sq, sk, hq, hkv, hd, causal, window, dt = key
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + hq + hd)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((b, sq, hq, hd), (b, sk, hkv, hd),
+                                 (b, sk, hkv, hd), (b, sq, hq, hd)))
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+    kern = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    check(same, f"flash_attention_bwd at {key}: two runs differ")
+    want = fab.plain(q, k, v, do, causal=causal, window=window)
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g = g.float()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        errs[name] = (err, scale, rel)
+        if dt == torch.bfloat16:
+            check(err <= BWD_BF16_MAX * scale and rel <= BWD_BF16_REL_L2,
+                  f"flash_attention_bwd {name} at {key}: max abs {err:.3e} "
+                  f"(max |ref| {scale:.3e}), relative L2 {rel:.3e}")
+        else:
+            check(err <= BWD_F32_MAX * scale,
+                  f"flash_attention_bwd {name} at {key}: max abs {err:.3e} "
+                  f"(max |ref| {scale:.3e})")
+    del got, again, want
+    plain = lambda: fab.plain(q, k, v, do, causal=causal, window=window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    mask = None
+    if window:
+        qp = torch.arange(sq, device="cuda")[:, None]
+        kp = torch.arange(sk, device="cuda")[None, :]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=hq != hkv)
+    lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                      retain_graph=True)
+    library, lib_dev = call_ms(lib, n=5), device_ms(lib, n=5, rounds=3)
+    flops, nbytes = bwd_work(key)
+    bms, bby = bound_ms(flops, nbytes, peaks, dt)
+    usage = ptxas_usage(_build.BUILD_LOG.get("flash_attention_bwd",
+                                             {}).get("log", ""))
+    tname = "I13__nv_bfloat16" if dt == torch.bfloat16 else "If"
+    regs = [usage.get(n) for n in usage
+            if f"kernel{tname}Li{hd}E" in n and ("dkdv" in n or "dq_k" in n)]
+    r = {"ms": call_ms(kern, n=5), "plain_ms": call_ms(plain, n=5),
+         "library_ms": library, "device_ms": device_ms(kern, n=5, rounds=3),
+         "library_device_ms": lib_dev, "bound_ms": bms, "bound_by": bby,
+         "max_abs_err": max(e[0] for e in errs.values()),
+         "rel_l2": {n: e[2] for n, e in errs.items()},
+         "registers": max((u[0] for u in regs if u), default=None),
+         "spill_bytes": sum(u[1] + u[2] for u in regs if u) if regs else None}
+    log(f"[train-bwd] {key}: " + ", ".join(
+        f"{n} max abs {e[0]:.3e} of max |ref| {e[1]:.3e}, relative L2 "
+        f"{e[2]:.3e}" for n, e in errs.items())
+        + f" (bounds {BWD_BF16_MAX} max|ref| and {BWD_BF16_REL_L2} relative L2"
+        f" in bf16, {BWD_F32_MAX} max|ref| in f32); two runs bit-equal; one "
+        f"call {r['ms']:.3f} ms, device {r['device_ms']:.3f} ms "
+        f"({flops / r['device_ms'] / 1e9:.1f} TFLOP/s of the bound's work, "
+        f"{bms / r['device_ms']:.2%} of the {bms:.4f} ms bound, {bby}); "
+        f"plain {r['plain_ms']:.3f} ms; library"
+        + (" (a boolean window mask)" if window else "")
+        + f" {library:.3f} ms, device {lib_dev:.3f} ms, kernel / library "
+        f"{r['device_ms'] / lib_dev:.2f}x; registers {r['registers']}, "
+        f"spill bytes {r['spill_bytes']}")
+    return r
+
+
+def train_split(prof, wall_s: float) -> tuple:
+    """A profiled train step's device time in ms: ``flash_attention``
+    forward (its two kernels by name), backward (``dot_rows_kernel``,
+    ``dkdv_kernel``, ``dq_kernel``), ``aten::mm`` (the projections and the
+    head, forward, recompute and backward), the optimizer (the kernels
+    under the ``adamw_update`` range) and the rest; the rest's kernels;
+    the busy total and the idle share of ``wall_s``."""
+    kernels, ops_ = Counter(), Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key != "adamw_update":
+                kernels[ev.key] += ev.self_device_time_total / 1e3
+        elif ev.key in ("aten::mm", "adamw_update"):
+            ops_[ev.key] += ev.device_time_total / 1e3
+    busy = sum(kernels.values())
+    fwd = sum(ms_ for k, ms_ in kernels.items()
+              if "flash_tc_kernel" in k or "flash_kernel" in k)
+    bwd = sum(ms_ for k, ms_ in kernels.items()
+              if re.search(r"dkdv_kernel|dq_kernel|dot_rows_kernel", k))
+    split = {"flash_attention": fwd, "flash_attention_bwd": bwd,
+             "mm": ops_["aten::mm"], "adamw": ops_["adamw_update"]}
+    split["rest"] = busy - sum(split.values())
+    rest = Counter({k: ms_ for k, ms_ in kernels.items()
+                    if "flash" not in k and not MATMUL_NAMES.search(k)
+                    and not re.search(r"dkdv_kernel|dq_kernel|dot_rows", k)})
+    return split, rest, busy, 1 - busy / 1e3 / wall_s
+
+
+@contextlib.contextmanager
+def optimizer_range():
+    """While open, each AdamW update of the train step runs in a profiler
+    range of its name."""
+    from repro_torch.training import trainer
+    update = trainer.adamw_update
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("adamw_update"):
+            return update(*a, **kw)
+    with mock.patch.object(trainer, "adamw_update", ranged):
+        yield
+
+
+@contextlib.contextmanager
+def no_plain_attention():
+    """While open, a call of attention's plain version raises: a CUDA
+    training step must not reach it."""
+    from repro_torch.kernels import ref
+
+    def refuse(*a, **kw):
+        raise AssertionError("flash_attention_ref ran on the train path")
+    with mock.patch.object(ref, "flash_attention_ref", refuse):
+        yield
+
+
+def lm_batches(cfg, batch: int, seq: int, seed: int, dev, n: int) -> list:
+    """``n`` batches of ``data.pipeline.SyntheticLMStream`` on ``dev``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    it = iter(SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=batch, seed=seed)))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def train_arch(name: str, layers=None, **run):
+    """``name``'s arch with ``layers`` layers (all by default) and the
+    ``train`` shape's run config of ``run``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RunConfig
+    arch = get_arch(name)
+    model_cfg = arch.model if layers is None else replace(
+        arch.model, num_layers=layers)
+    return replace(arch, model=model_cfg,
+                   run_overrides={"train": RunConfig(**run)})
+
+
+def leaves_equal(a, b) -> bool:
+    from repro_torch.distributed import sharding as shd
+    return all(torch.equal(x, y) for x, y in zip(shd.tree_leaves(a),
+                                                 shd.tree_leaves(b)))
+
+
+def train_phase(dev, env, smi: str, peaks) -> dict:
+    """Phase 9: training on the card. (a) the ``flash_attention``
+    backward at every key a path runs, plus a window and an f32 case;
+    (b) Yi-6B at full width and 16 of its 32 layers, three steps of 8 x
+    4096 in 4 microbatches through ``make_train_step`` and one more under
+    the profiler; (c) 2 layers at full width, 2 x 512: the step through
+    the kernels against it through the plain versions over 4 seeds, two
+    kernel runs bit-equal, and one step with int8 compression; (d)
+    Whisper-small at full size, one step of 8 x (1500 frames, 448
+    tokens); (e) a checkpoint round trip; (f) one step of the CLI.
+    Returns the launches of (b) and (d) by (kernel, key), the backward's
+    numbers by key and the checks' readings."""
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    t_phase = time.perf_counter()
+    # (a) the backward kernel at each key, against its plain version
+    measured = {("flash_attention_bwd", key): measure_bwd(key, peaks)
+                for key in BWD_KEYS}
+    torch.cuda.empty_cache()
+
+    # (b) Yi-6B, 16 of 32 layers at full width
+    arch = train_arch(DENSE, TRAIN_LAYERS, microbatch=TRAIN_MICRO,
+                      remat="full")
+    cfg = arch.model
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = OptConfig(warmup=2, total_steps=10)
+    bundle = model.make_step_bundle(arch, shape, env, opt_cfg=opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    params = shd.init_params(bundle.arg_specs[0], gen, dev)
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = shd.param_count(bundle.arg_specs[0])
+    log(f"[train] {smi}: {DENSE} at full width, {TRAIN_LAYERS} of 32 layers "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV "
+        f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, untied head), {n_params / 1e9:.3f}B parameters in "
+        f"bf16 with f32 AdamW moments ({n_params * 10 / 1e9:.1f} GB) drawn "
+        f"from seed {TRAIN_SEED} in {time.perf_counter() - t0:.2f}s; batches "
+        f"of {TRAIN_BATCH} x {TRAIN_SEQ} from SyntheticLMStream in "
+        f"{TRAIN_BATCH // TRAIN_MICRO} microbatches of {TRAIN_MICRO}, remat "
+        f"full, f32 gradient accumulators")
+    key = flash_key(cfg, TRAIN_MICRO, TRAIN_SEQ)[1]
+    per_step = Counter({("flash_attention", key): 2 * TRAIN_LAYERS
+                        * TRAIN_BATCH // TRAIN_MICRO,
+                        ("flash_attention_bwd", key): TRAIN_LAYERS
+                        * TRAIN_BATCH // TRAIN_MICRO})
+    batches = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, dev,
+                         TRAIN_STEPS + 1)
+    shapes, walls, metrics = Counter(), [], []
+    with no_plain_attention():
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, m = bundle.fn(params, opt, batches[step])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = counted()
+            check(got == per_step, f"train step {step} launched {dict(got)}, "
+                  f"expected {dict(per_step)}")
+            shapes += got
+            metrics.append({k: v.item() for k, v in m.items()})
+            check(all(math.isfinite(v) for v in metrics[-1].values()),
+                  f"train step {step}: {metrics[-1]}")
+    mem = torch.cuda.max_memory_allocated()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    check(mem < total_mem, f"train peak {mem} of {total_mem}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {smi}: {TRAIN_STEPS} steps: wall "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; loss "
+        f"{', '.join(f'{m_['loss']:.4f}' for m_ in metrics)}, grad_norm "
+        f"{', '.join(f'{m_['grad_norm']:.4f}' for m_ in metrics)}, lr "
+        f"{', '.join(f'{m_['lr']:.2e}' for m_ in metrics)}; launches a step "
+        f"{ {f'{kn}{k}': c for (kn, k), c in per_step.items()} } (16 layers x "
+        f"4 microbatches, forward and its remat recompute, one backward), "
+        f"no plain attention; max_memory_allocated {mem / 1e9:.2f} GB of "
+        f"{total_mem / 1e9:.2f} GB")
+    with no_plain_attention():
+        prof_wall, prof = profiled_step(
+            lambda: bundle.fn(params, opt, batches[TRAIN_STEPS]))
+    split, rest, busy, idle = train_split(prof, prof_wall)
+    del prof
+    log(f"[train] {smi}: profiled step: wall {prof_wall:.3f} s (unprofiled "
+        f"{min(walls):.3f} s); device time "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in split.items())
+        + f"; busy {busy:.1f} ms, idle {idle:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / min(walls):.1%} of the fastest unprofiled wall)")
+    log("[train] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.1f} ms" for k, v in rest.most_common(8)))
+    out = {"shapes": shapes, "measured": measured, "walls": walls,
+           "split": split, "idle": idle, "peak_bytes": mem}
+    del params, opt, batches, bundle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers at full width, 2 x 512: kernels against plain versions
+    arch2 = train_arch(DENSE, CHECK_LAYERS, microbatch=CHECK_BATCH,
+                       remat="full")
+    cfg2, run2 = arch2.model, arch2.run_config("train")
+    shape2 = ShapeConfig("train", CHECK_SEQ, CHECK_BATCH, "train")
+    loss_fn = trainer.model_loss_fn(cfg2, run2, env)
+    specs2 = model.param_specs(cfg2)
+    readings = []
+    for seed in CHECK_SEEDS:
+        g2 = torch.Generator(device=dev).manual_seed(seed)
+        p2 = shd.init_params(specs2, g2, dev)
+        b2 = lm_batches(cfg2, CHECK_BATCH, CHECK_SEQ, seed, dev, 1)[0]
+        (lk, _), gk = trainer.value_and_grad(loss_fn, p2, b2)
+        with mock.patch.object(ops, "attention", ref.flash_attention_ref):
+            (lp, _), gp = trainer.value_and_grad(loss_fn, p2, b2)
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        worst = max(((a.float() - b_.float()).norm() / b_.float().norm())
+                    .item() for a, b_ in zip(shd.tree_leaves(gk),
+                                             shd.tree_leaves(gp)))
+        readings.append((seed, loss_rel, worst))
+        check(loss_rel <= TRAIN_LOSS_REL, f"seed {seed}: kernel loss "
+              f"{lk.item()} vs plain {lp.item()}")
+        check(worst <= TRAIN_GRAD_REL_L2, f"seed {seed}: a gradient leaf "
+              f"{worst:.3e} relative L2 from the plain step's")
+        del p2, gk, gp
+    log(f"[train-check] {CHECK_LAYERS} layers at full width, "
+        f"{CHECK_BATCH} x {CHECK_SEQ}, bf16: the step's loss and gradients "
+        f"through the kernels vs through flash_attention_ref on the card: "
+        + "; ".join(f"seed {s}: loss {lr:.2e} relative, the worst gradient "
+                    f"leaf {w:.3e} relative L2" for s, lr, w in readings)
+        + f" (bounds {TRAIN_LOSS_REL} and {TRAIN_GRAD_REL_L2})")
+    bundle2 = model.make_step_bundle(arch2, shape2, env, opt_cfg=opt_cfg)
+    g2 = torch.Generator(device=dev).manual_seed(CHECK_SEEDS[0])
+    base = shd.init_params(specs2, g2, dev)
+    b2 = lm_batches(cfg2, CHECK_BATCH, CHECK_SEQ, CHECK_SEEDS[0], dev, 1)[0]
+    runs = []
+    for _ in range(2):
+        p2 = shd.tree_map(torch.clone, base)
+        o2 = init_opt_state(p2, opt_cfg)
+        p2, o2, m2 = bundle2.fn(p2, o2, b2)
+        runs.append((p2, o2, m2))
+    check(leaves_equal(runs[0][0], runs[1][0])
+          and leaves_equal(runs[0][1], runs[1][1]),
+          "two kernel steps from one state differ")
+    comp = trainer.make_train_step(
+        arch2.model, arch2.run_config(shape2.name), env, opt_cfg,
+        grad_transform=compression.make_grad_transform(
+            compression.CompressionConfig()))
+    p2 = shd.tree_map(torch.clone, base)
+    _, _, mc = comp(p2, init_opt_state(p2, opt_cfg), b2)
+    check(all(math.isfinite(v.item()) for v in mc.values()),
+          f"compressed step: {mc}")
+    log(f"[train-check] two kernel steps from one state: parameters and "
+        f"moments bit-equal (loss {runs[0][2]['loss'].item():.6f}); one step "
+        f"with int8 compression and error feedback from the same state: loss "
+        f"{mc['loss'].item():.6f}, grad_norm {mc['grad_norm'].item():.4f} "
+        f"(the dequantized gradients' and the residual's, as the reference "
+        f"counts them) against {runs[0][2]['grad_norm'].item():.4f} without")
+    del runs, p2, base, comp, bundle2
+    torch.cuda.empty_cache()
+
+    # (d) Whisper-small at full size, one step
+    warch = train_arch(ENCDEC)
+    wcfg = warch.model
+    wbundle = model.make_step_bundle(warch, ShapeConfig(
+        "train", ENCDEC_SEQ, ENCDEC_BATCH, "train"), env, opt_cfg=opt_cfg)
+    wgen = torch.Generator(device=dev).manual_seed(9)
+    wparams = shd.init_params(wbundle.arg_specs[0], wgen, dev)
+    wopt = init_opt_state(wparams, opt_cfg)
+    wbatch = lm_batches(wcfg, ENCDEC_BATCH, ENCDEC_SEQ, 9, dev, 1)[0]
+    wbatch["frames"] = stub_frames(wcfg, ENCDEC_BATCH, wgen, dev)
+    wkeys = [flash_key(wcfg, ENCDEC_BATCH, wcfg.encoder_seq,
+                       causal=False)[1],
+             flash_key(wcfg, ENCDEC_BATCH, ENCDEC_SEQ,
+                       keys=wcfg.encoder_seq, causal=False)[1],
+             flash_key(wcfg, ENCDEC_BATCH, ENCDEC_SEQ)[1]]
+    wexpect = Counter()
+    for k_ in wkeys:
+        wexpect[("flash_attention", k_)] = 2 * wcfg.num_layers
+        wexpect[("flash_attention_bwd", k_)] = wcfg.num_layers
+    with no_plain_attention():
+        wparams, wopt, wm = wbundle.fn(wparams, wopt, wbatch)   # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        wparams, wopt, wm = wbundle.fn(wparams, wopt, wbatch)
+        torch.cuda.synchronize()
+        wwall = time.perf_counter() - t0
+    wgot = counted()
+    check(wgot == wexpect, f"Whisper step launched {dict(wgot)}, expected "
+          f"{dict(wexpect)}")
+    check(all(math.isfinite(v.item()) for v in wm.values()),
+          f"Whisper step: {wm}")
+    out["shapes"] += wgot
+    log(f"[train] {smi}: {ENCDEC} at full size, one step of {ENCDEC_BATCH} x "
+        f"({wcfg.encoder_seq} frames, {ENCDEC_SEQ} tokens), remat full: wall "
+        f"{wwall:.3f} s (after one warm-up step), loss {wm['loss'].item():.4f}"
+        f", grad_norm {wm['grad_norm'].item():.4f}; launches "
+        f"{ {f'{kn}{k}': c for (kn, k), c in sorted(wgot.items(), key=str)} }"
+        f" (12 encoder, 12 cross, 12 causal self: forward, remat "
+        f"recompute, backward)")
+    out["whisper_wall"] = wwall
+    del wparams, wopt, wbundle, wbatch
+    torch.cuda.empty_cache()
+
+    # (e) a checkpoint round trip: save after step 2, restore, step 3
+    sarch = train_arch(DENSE)
+    sarch = replace(sarch, model=sarch.model.reduced())
+    sbundle = model.make_step_bundle(sarch, ShapeConfig("train", 128, 8,
+                                                        "train"), env,
+                                     opt_cfg=opt_cfg)
+    sgen = torch.Generator(device=dev).manual_seed(0)
+    sp = shd.init_params(sbundle.arg_specs[0], sgen, dev)
+    so = init_opt_state(sp, opt_cfg)
+    sb = lm_batches(sarch.model, 8, 128, 0, dev, 3)
+    for step in range(2):
+        sp, so, _ = sbundle.fn(sp, so, sb[step])
+    ckdir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckdir) as d:
+        ckpt.save(d, 2, {"params": sp, "opt": so}, extra={"step": 2})
+        sp, so, sm = sbundle.fn(sp, so, sb[2])
+        state, extra = ckpt.restore(d, device=dev)
+    rp, ro, rm = sbundle.fn(state["params"], state["opt"], sb[2])
+    check(extra == {"step": 2} and leaves_equal(sp, rp)
+          and leaves_equal(so, ro) and torch.equal(sm["loss"], rm["loss"]),
+          "step 3 after restoring step 2 differs from the uninterrupted run")
+    log(f"[train-ckpt] {sarch.model.name} on {dev}: saved after step 2, "
+        f"restored, step 3 bit-equal to the uninterrupted run (loss "
+        f"{sm['loss'].item():.6f}, {len(shd.tree_leaves(sp))} parameter "
+        f"leaves and both moments)")
+    del sp, so, rp, ro, state, sbundle
+
+    # (f) the CLI: python -m repro_torch.launch.train --smoke, one step
+    root = Path(__file__).resolve().parent
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "2", "--batch", "8", "--seq", "128", "--log-every", "1"],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and lines and lines[-1].startswith(
+        "final loss"), f"the train CLI: rc {cli.returncode}, "
+        f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    log("[train-cli] python -m repro_torch.launch.train --smoke --steps 2 "
+        "--batch 8 --seq 128 on the card: " + " | ".join(lines))
+    out["readings"] = readings
+    log(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def profiled_step(fn) -> tuple:
+    """One call of ``fn`` under the profiler (the CPU and the card) with
+    the optimizer's range open: (wall in s, the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with optimizer_range(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, p
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -1909,7 +2475,7 @@ def main() -> int:
     copied0 = HostToDevice.copied_bytes
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    with eviction_log() as evicted:
+    with eviction_log() as evicted, rejection_log() as rejected:
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     serve_shapes = Counter({(kn, key): c for kn, by_shape in
@@ -1935,6 +2501,7 @@ def main() -> int:
           f"launch counts by shape differ from the graphs: counted "
           f"{sorted(serve_shapes.items())}, expected {sorted(expected.items())}")
     budget = BUDGET_MB << 20
+    log_over_budget("serve", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
           f"pool peak {engine.peak_memory()} > budget {budget}")
     check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
@@ -1943,6 +2510,10 @@ def main() -> int:
         log(f"[{tag}] planned with {engine.hw}: fits_budget "
             f"{engine.multi_plan.fits_budget()} peaks "
             f"{ {n: round(p / 1e6, 1) for n, p in engine.multi_plan.peaks.items()} } MB; "
+            f"prefetch limits "
+            f"{ {n: round(engine._prefetch_limit(n) / 1e6, 1) for n in engine.multi_plan.peaks} } MB; "
+            f"executed peak per request (model, MB) "
+            f"{[(s.model, round(s.peak_bytes / 1e6, 1)) for s in engine.stats_log]}; "
             f"stall events per request "
             f"{[s.stall_events for s in engine.stats_log]}")
         log(f"[{tag}] pool peak {engine.peak_memory() / 1e6:.1f} MB of "
@@ -2024,12 +2595,13 @@ def main() -> int:
     copied0 = HostToDevice.copied_bytes
     with mock.patch.object(HWSpec, "cuda_calibrated",
                            staticmethod(previous_rate)), \
-            eviction_log() as evicted:
+            eviction_log() as evicted, rejection_log() as rejected:
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     check(engine.hw.peak_flops == PREVIOUS_PEAK_FLOPS,
           f"the engine planned with {engine.hw}")
     check(len(responses) == REQUESTS, f"{len(responses)} responses")
+    log_over_budget("serve-previous-rate", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
           f"pool peak {engine.peak_memory()} > budget {budget}")
     check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
@@ -2665,15 +3237,29 @@ def main() -> int:
         f"{pass_ms['library_warm_device_ms']:.4f} ms; a plain copy of the "
         f"same bytes cold {pass_ms['copy_cold_device_ms']:.4f} ms")
 
-    # ---- 9. summary -------------------------------------------------------
+    # ---- 9. training: the backward kernel, Yi-6B, Whisper-small ----------
+    train_out = train_phase(dev, env, smi, peaks)
+    train_shapes = train_out["shapes"]
+    measured.update(train_out["measured"])
+    for shape in sorted(train_shapes, key=str):
+        # measure() times forward kernels only: every backward key the
+        # path launched must have been measured in phase 9a
+        check(shape[0] != "flash_attention_bwd" or shape in measured,
+              f"flash_attention_bwd launched at {shape[1]}, which phase 9a "
+              f"did not measure (BWD_KEYS)")
+        if shape not in measured:
+            measure(shape)
+
+    # ---- 10. summary ------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
     # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the Yi-6B
     # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
     # (phase 7c), the Jamba prefill requests (phase 7d), the Whisper-small
-    # prefill requests (phase 7e), the pack pass (phase 8)
+    # prefill requests (phase 7e), the pack pass (phase 8), the Yi-6B
+    # train steps and the Whisper-small one (phase 9)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
         dense_shapes + moe_shapes + hybrid_shapes + encdec_shapes + \
-        pack_shapes
+        pack_shapes + train_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -2727,7 +3313,9 @@ def main() -> int:
         f"{hybrid_out['plain_err']:.2e}, decode vs prefill "
         f"{hybrid_out['consist_err']:.2e}; Whisper-small prefill vs plain "
         f"{encdec_out['plain_err']:.2e}, decode vs prefill "
-        f"{encdec_out['consist_err']:.2e}; "
+        f"{encdec_out['consist_err']:.2e}; Yi-6B (16 layers) train steps "
+        f"{', '.join(f'{w:.3f}' for w in train_out['walls'])} s, "
+        f"Whisper-small {train_out['whisper_wall']:.3f} s; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

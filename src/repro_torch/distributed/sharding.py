@@ -63,6 +63,12 @@ def tree_leaves(tree, is_leaf: Callable = None) -> list:
     return out
 
 
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def spec_map(fn: Callable, tree):
     return tree_map(fn, tree, is_leaf=is_spec)
 
@@ -127,5 +133,6 @@ def param_count(specs) -> int:
 
 
 __all__ = ["ParamSpec", "is_spec", "spec_map", "tree_map", "tree_leaves",
+           "tree_unflatten",
            "MeshEnv", "single_device_env", "init_params", "param_bytes",
            "param_count"]

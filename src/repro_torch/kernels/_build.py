@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = {"streamed_matmul": "streamed_matmul.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd_scan": "ssd_scan.cu",
            "layout_pack": "layout_pack.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,7 +3,9 @@
 // dtype (f32 or bf16). q [B,Sq,Hq,hd], k and v [B,Sk,Hkv,hd], contiguous;
 // hd in {16, 32, 64, 128}. Two kernels behind one entry point: f32 runs
 // on the FMA units (flash_kernel), bf16 on the tensor cores
-// (tc::flash_tc_kernel).
+// (tc::flash_tc_kernel). Both write, when given an lse pointer, each
+// row's log-sum-exp of the scaled and masked scores (f32 [B,Hq,Sq]), the
+// input of the backward in flash_attention_bwd.cu; O does not change.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention, the
 // Pallas kernel with grid (B*H, Sq/bq, Sk/bkv) that carries m, l and acc
@@ -110,6 +112,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int WROWS = BQ / WARPS;  // query rows a warp owns
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 __host__ __device__ constexpr int kv_tile() { return HD == 128 ? 32 : 64; }
@@ -166,8 +169,9 @@ __device__ __forceinline__ bool tile_visible(int q0, int k0, int bkv,
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             int hq, int hkv, int causal, int window, float scale, int nbh) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int sq, int sk, int hq, int hkv,
+             int causal, int window, float scale, int nbh) {
   constexpr int BKV = kv_tile<HD>();
   constexpr int QS = HD + 4;            // row stride of the Q, K, V tiles
   constexpr int PS = BKV + 8;           // row stride of a warp's P rows
@@ -378,11 +382,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  // the row's log-sum-exp of the scaled scores, for the backward; m and l
+  // are the same in the 8 lanes of a row
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + wrow + 4 * i;
+      if (row < sq) lse[(size_t)bh * sq + row] = (m[i] + log2f(l[i])) * LN2;
+    }
+  }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int hq, int hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int hq, int hkv, int causal, int window,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
@@ -396,28 +409,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const int items = b * hq * ((sq + BQ - 1) / BQ);
   flash_kernel<T, HD><<<items, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hq, hkv, causal,
-      window, scale, b * hq);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hq, hkv,
+      causal, window, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int hq, int hkv, int hd, int causal, int window,
-             float scale, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int sq, int sk, int hq, int hkv, int hd,
+             int causal, int window, float scale, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
-                           scale, s);
+      return launch<T, 16>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
+                           window, scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
-                           scale, s);
+      return launch<T, 32>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
+                           window, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
-                           scale, s);
+      return launch<T, 64>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
+                           window, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
-                            scale, s);
+      return launch<T, 128>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
+                            window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -711,8 +724,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int sq, int sk, int hq,
-                int hkv, int causal, int window, float scale, int nbh) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int sk, int hq, int hkv, int causal, int window,
+                float scale, int nbh) {
   constexpr int HDP = padded(HD);
   constexpr int QB = BQ * HDP * 2;   // bytes of the Q tile
   constexpr int KB = BKV * HDP * 2;  // bytes of one K or V tile
@@ -951,11 +965,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[4 * j + 2 * half] * inv,
                                 acc[4 * j + 2 * half + 1] * inv);
   }
+  // the row's log-sum-exp of the scaled scores, for the backward; m and l
+  // are the same in the 4 lanes of a row
+  if (lse != nullptr && (wl & 3) == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = qw + r0 + 8 * half;
+      if (row < sq)
+        lse[(size_t)bh * sq + row] =
+            ((half ? m1 : m0) + log2f(half ? l1 : l0)) * LN2;
+    }
+  }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int hq, int hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int hq, int hkv, int causal, int window,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
@@ -971,25 +996,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      sq, sk, hq, hkv, causal, window, scale, b * hq);
+      lse, sq, sk, hq, hkv, causal, window, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int hq, int hkv, int hd, int causal, int window,
-             float scale, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int b, int sq, int sk, int hq, int hkv, int hd, int causal,
+             int window, float scale, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
+      return launch<16>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
                         scale, s);
     case 32:
-      return launch<32>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
+      return launch<32>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
                         scale, s);
     case 64:
-      return launch<64>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
+      return launch<64>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
                         scale, s);
     case 128:
-      return launch<128>(q, k, v, o, b, sq, sk, hq, hkv, causal, window,
+      return launch<128>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
                          scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1000,18 +1025,22 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and o start on 16-byte
-// boundaries. Returns a CUDA error code (0 = none).
+// boundaries. lse is null, or f32 [B, Hq, Sq] that takes each row's
+// log-sum-exp of the scaled and masked scores (the backward's input).
+// Returns a CUDA error code (0 = none).
 extern "C" int fm_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int b, int sq, int sk, int hq,
-                                  int hkv, int hd, int causal, int window,
-                                  float scale, int dtype, void* stream) {
+                                  void* o, void* lse, int b, int sq, int sk,
+                                  int hq, int hkv, int hd, int causal,
+                                  int window, float scale, int dtype,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
   if (sk <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, sq, sk, hq, hkv, hd, causal,
+    return dispatch<float>(q, k, v, o, l, b, sq, sk, hq, hkv, hd, causal,
                            window, scale, s);
-  return tc::dispatch(q, k, v, o, b, sq, sk, hq, hkv, hd, causal, window,
+  return tc::dispatch(q, k, v, o, l, b, sq, sk, hq, hkv, hd, causal, window,
                       scale, s);
 }

@@ -16,7 +16,10 @@ The header of the source says what bounds each and what its design does.
 ``flash_attention`` launches the kernel of q's dtype on CUDA tensors in
 the ``[B, S, H, hd]`` layout of the JAX kernel; ``plain`` is the same
 function in plain PyTorch, which the CPU path runs and ``chip_smoke.py``
-holds the kernel against.
+holds the kernel against. ``FlashAttention.apply`` is the differentiable
+call: its forward launches the kernel with the rows' log-sum-exp kept
+(``forward_with_lse``), its backward launches ``flash_attention_bwd``. Under ``torch.utils.checkpoint`` the recomputed
+forward launches again and keeps its own log-sum-exp.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.ref import flash_attention_ref as plain
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -51,6 +55,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the kernel: q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] on one CUDA
     device, one dtype (f32 or bf16), Hq a multiple of Hkv, hd in
     ``HEAD_DIMS``. Returns [B,Sq,Hq,hd] in q's dtype."""
+    return _launch(q, k, v, causal, window, with_lse=False)[0]
+
+
+def forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0):
+    """``flash_attention`` that also returns each row's log-sum-exp of the
+    scaled and masked scores, f32 [B,Hq,Sq], as the backward takes it."""
+    return _launch(q, k, v, causal, window, with_lse=True)
+
+
+def _launch(q, k, v, causal, window, *, with_lse):
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
         raise ValueError("flash_attention needs q, k and v on one CUDA "
@@ -72,16 +87,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
     o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if q.numel() == 0:
-        return o
+        return o, lse
     err = _entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, hq,
-        hkv, hd, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, hd,
+        int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
     launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window),
               q.dtype)] += 1
-    return o
+    return o, lse
 
 
-__all__ = ["flash_attention", "plain", "HEAD_DIMS"]
+class FlashAttention(torch.autograd.Function):
+    """The kernel with its gradient: forward ``forward_with_lse``,
+    backward ``flash_attention_bwd`` (dq, dk, dv in the inputs' dtype)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+__all__ = ["flash_attention", "forward_with_lse", "FlashAttention", "plain",
+           "HEAD_DIMS"]

@@ -4,6 +4,12 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version. There is no
 fallback from one to the other. Each kernel module counts its launches
 (``launch_counts``), so a run can show that it went through the kernels.
+
+Where autograd needs a gradient (grad mode on and an input that requires
+one), ``attention`` on CUDA goes through ``FlashAttention``, whose
+backward is the ``flash_attention_bwd`` kernel, and ``ssd`` through
+``SSDScan``, whose backward raises until its kernel is written. The plain
+versions on the CPU are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import layout_pack as _pack
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -20,7 +27,12 @@ from repro_torch.kernels import streamed_matmul as _mm
 from repro_torch.kernels.layout_pack import native_tile
 
 KERNELS = {"streamed_matmul": _mm, "flash_attention": _fa,
-           "ssd_scan": _ssd, "layout_pack": _pack}
+           "flash_attention_bwd": _fab, "ssd_scan": _ssd,
+           "layout_pack": _pack}
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,6 +47,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd]."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, bool(causal), int(window))
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -46,6 +60,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     recurrence, which needs no chunk."""
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, a, b, c, d_skip)
+    if _needs_grad(x, dt, a, b, c, d_skip):
+        return _ssd.ssd_scan_with_grad(x, dt, a, b, c, d_skip, chunk=chunk)
     return _ssd.ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
 
 
@@ -67,8 +83,9 @@ def launch_counts() -> Dict[str, int]:
 def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
-    window, dtype) for ``flash_attention``, (B, S, H, P, N, Q) for
-    ``ssd_scan`` and (R, C, tr, tc, dtype) for ``layout_pack``. The dtype
+    window, dtype) for ``flash_attention`` and ``flash_attention_bwd``,
+    (B, S, H, P, N, Q) for ``ssd_scan`` and (R, C, tr, tc, dtype) for
+    ``layout_pack``. The dtype
     keeps an f32 launch apart from a bf16 one of the same shape."""
     return {name: Counter(mod.launches) for name, mod in KERNELS.items()}
 

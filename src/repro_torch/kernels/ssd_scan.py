@@ -200,6 +200,30 @@ def ssd_scan_with_passes(x, dt, a, b, c, d_skip, *, chunk: int = 256):
     return y, lcum, s_in, g[:, :, :q, :q].transpose(2, 3)
 
 
-__all__ = ["ssd_scan", "ssd_scan_with_passes", "plain", "chunk_len",
+class SSDScan(torch.autograd.Function):
+    """The kernel under autograd. Its backward is not written yet, so a
+    gradient through it raises rather than run the plain version on the
+    card; the CPU's ``plain`` keeps its autograd."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk: int):
+        return ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet, so the SSM and hybrid "
+            "families do not train on CUDA; see ROADMAP.md §1 (the ssd_scan "
+            "backward is next in the queue)")
+
+
+def ssd_scan_with_grad(x, dt, a, b, c, d_skip, *, chunk: int = 256):
+    """``ssd_scan`` under autograd: the forward launches the kernel, a
+    backward raises ``NotImplementedError``."""
+    return SSDScan.apply(x, dt, a, b, c, d_skip, int(chunk))
+
+
+__all__ = ["ssd_scan", "ssd_scan_with_passes", "ssd_scan_with_grad",
+           "SSDScan", "plain", "chunk_len",
            "chunk_states", "state_passing", "chunk_outputs", "passes",
            "MAX_P", "MAX_N", "MAX_Q"]

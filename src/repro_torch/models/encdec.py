@@ -12,8 +12,12 @@ positions, keys and values projected from the encoder's output) through
 the ``flash_attention`` kernel on the card (``models.attention``). Decode
 keeps a stacked self-attention KV cache and the encoder's K/V of each
 layer (``cross_k``, ``cross_v``); its cross-attention is plain PyTorch, as
-the JAX package computes it in jnp outside any Pallas kernel. ``loss_fn``
-comes with the training slice.
+the JAX package computes it in jnp outside any Pallas kernel.
+``loss_fn`` is that package's masked next-token cross-entropy; with grad
+enabled each encoder and decoder layer is recomputed in the backward
+unless ``run.remat`` is ``"none"`` (the JAX ``_scan_blocks`` checkpoints
+its scan body with the default policy, which saves nothing, for
+``"block"`` as for ``"full"``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ from repro_torch.distributed.sharding import (MeshEnv, ParamSpec,
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, dot, mlp_specs,
                                        norm_specs, sinusoid_positions)
-from repro_torch.models.transformer import constrain_params, strip_layer_axis
+from repro_torch.models.transformer import (constrain_params, next_token_loss,
+                                           remat_call, strip_layer_axis,
+                                           unbind_layers)
 
 MAX_DEC_POS = 1 << 16  # structural cap covering decode_32k (real model: 448)
 
@@ -69,9 +75,13 @@ def _layers(cfg: ModelConfig, env: MeshEnv, specs_fn, params):
     """Each layer's parameters of a stacked tree, in order (the JAX
     package's scan over it)."""
     layer_specs = strip_layer_axis(specs_fn(cfg, 1))
-    for i in range(tree_leaves(params)[0].shape[0]):
-        yield i, constrain_params(tree_map(lambda t: t[i], params),
-                                  layer_specs, env)
+    n = tree_leaves(params)[0].shape[0]
+    for i, p in enumerate(unbind_layers(params, n)):
+        yield i, constrain_params(p, layer_specs, env)
+
+
+def _remat(run: RunConfig) -> str:
+    return "none" if run.remat == "none" else "full"
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -85,34 +95,43 @@ def encode(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, frames):
         frames.dtype)
     x = env.constrain(x, "batch", "seq", "embed")
     positions = _positions(b, t, frames.device)
+
+    def blk(p, xx):
+        h = apply_norm(cfg, p["norm1"], xx)
+        xx = xx + attn.attention_block(cfg, p["attn"], h, positions, env,
+                                       causal=False)
+        h = apply_norm(cfg, p["norm2"], xx)
+        return xx + apply_mlp(cfg, p["mlp"], h, env)
+
     for _, p in _layers(cfg, env, _enc_block_specs, params["encoder"]):
-        h = apply_norm(cfg, p["norm1"], x)
-        x = x + attn.attention_block(cfg, p["attn"], h, positions, env,
-                                     causal=False)
-        h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["mlp"], h, env)
+        x = remat_call(_remat(run), blk, p, x)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
 def _decoder_hidden(cfg: ModelConfig, env: MeshEnv, params, tokens,
-                    enc_out):
-    """The decoder's last layer output [B,S,D] over the encoder's output."""
+                    enc_out, remat: str = "none"):
+    """The decoder's last layer output [B,S,D] over the encoder's output;
+    ``remat`` as ``remat_call`` takes it."""
     b, s = tokens.shape
     x = params["embed"][tokens] + params["dec_pos"][:s][None]
     x = env.constrain(x, "batch", "seq", "embed")
     positions = _positions(b, s, x.device)
     enc_positions = _positions(b, enc_out.shape[1], x.device)
-    for _, p in _layers(cfg, env, _dec_block_specs, params["decoder"]):
-        h = apply_norm(cfg, p["norm1"], x)
-        x = x + attn.attention_block(cfg, p["self_attn"], h, positions, env,
-                                     causal=True)
-        h = apply_norm(cfg, p["norm_x"], x)
-        _, kk, kv = attn.qkv_project(cfg, p["cross_attn"], enc_out,
+
+    def blk(p, xx, enc):
+        h = apply_norm(cfg, p["norm1"], xx)
+        xx = xx + attn.attention_block(cfg, p["self_attn"], h, positions,
+                                       env, causal=True)
+        h = apply_norm(cfg, p["norm_x"], xx)
+        _, kk, kv = attn.qkv_project(cfg, p["cross_attn"], enc,
                                      enc_positions, env)
-        x = x + attn.attention_block(cfg, p["cross_attn"], h, positions, env,
-                                     kv_override=(kk, kv))
-        h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["mlp"], h, env)
+        xx = xx + attn.attention_block(cfg, p["cross_attn"], h, positions,
+                                       env, kv_override=(kk, kv))
+        h = apply_norm(cfg, p["norm2"], xx)
+        return xx + apply_mlp(cfg, p["mlp"], h, env)
+
+    for _, p in _layers(cfg, env, _dec_block_specs, params["decoder"]):
+        x = remat_call(remat, blk, p, x, enc_out)
     return x
 
 
@@ -132,6 +151,17 @@ def prefill(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, batch):
     enc_out = encode(cfg, run, env, params, batch["frames"])
     x = _decoder_hidden(cfg, env, params, batch["tokens"], enc_out)
     return _logits(cfg, env, params, x[:, -1:, :])
+
+
+def loss_fn(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, batch):
+    """batch: ``frames`` [B,T,D], ``tokens`` [B,S], ``targets`` [B,S] (-1 =
+    pad). Returns (loss, metrics ``loss``, ``tokens``)."""
+    enc_out = encode(cfg, run, env, params, batch["frames"])
+    x = _decoder_hidden(cfg, env, params, batch["tokens"], enc_out,
+                        _remat(run))
+    loss, tokens = next_token_loss(_logits(cfg, env, params, x),
+                                   batch["targets"])
+    return loss, {"loss": loss, "tokens": tokens}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
@@ -185,5 +215,5 @@ def decode_step(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params,
     return _logits(cfg, env, params, x), dict(cache, self=new_self)
 
 
-__all__ = ["MAX_DEC_POS", "param_specs", "encode", "prefill", "cache_specs",
-           "decode_step"]
+__all__ = ["MAX_DEC_POS", "param_specs", "encode", "prefill", "loss_fn",
+           "cache_specs", "decode_step"]

@@ -3,17 +3,20 @@ its inputs, and the real tensors for tests and the smoke run.
 
 The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
 kinds of the SSM, dense, MoE and hybrid families (``transformer``) and of
-the enc-dec family (``encdec``). ``train`` waits for the training slice
-(``ROADMAP.md`` §1);
+the enc-dec family (``encdec``), and for the ``train`` kind of the dense,
+enc-dec and SSM families (``training.trainer.make_train_step``). An MoE
+block (the MoE and hybrid families) has no differentiable path yet, so
+their train bundles raise; the SSM family trains on the CPU and raises at
+the ``ssd_scan`` backward on the card (``ROADMAP.md`` §1).
 ``lower_step`` is the dry-run's XLA lowering and waits with
 ``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
-(or decode cache), mapped through ``np.asarray``, into the port's tensors
-with the same dtypes.
+(or decode cache, or optimizer state), mapped through ``np.asarray``, into
+the port's tensors with the same dtypes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import MeshEnv, ParamSpec
 from repro_torch.models import encdec, transformer
+from repro_torch.training.optimizer import OptConfig, opt_state_specs
+from repro_torch.training.trainer import make_train_step
 
 
 def param_specs(cfg: ModelConfig):
@@ -86,9 +91,13 @@ class StepBundle:
     """One (arch x shape) step: the function and its inputs' spec trees."""
     fn: Callable                 # the step, on tensors
     arg_specs: tuple             # ParamSpec trees, in call order
+    # the inputs the step updates in place (a train step's params and
+    # optimizer state); it records that for the caller and feeds nothing
+    donate: tuple = ()
 
 
 def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
+                     opt_cfg: Optional[OptConfig] = None,
                      attn_mode: str = "paired") -> StepBundle:
     """The step of ``shape.kind``. A prefill batch carries ``tokens``,
     ``embeds`` and ``positions`` for the vision stub, or ``frames`` and
@@ -100,17 +109,31 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
     ``"cp"`` on one device (one model shard, the query chunk at offset 0,
     the weight and K/V gathers identities) is the ordinary prefill. Its
     sharding across devices waits for the mesh slice (``ROADMAP.md`` §1,
-    "Mesh and analysis")."""
+    "Mesh and analysis").
+
+    A train step is ``fn(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` (``batch_specs(train=True)``), AdamW under ``opt_cfg``
+    (the run config's moment dtype by default); it updates ``params`` and
+    ``opt_state`` in place (``donate``)."""
     if attn_mode not in ATTN_MODES:
         raise ValueError(f"attn_mode {attn_mode!r} is not one of "
                          f"{ATTN_MODES}")
     cfg = arch.model
     run = arch.run_config(shape.name)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "training steps are not ported yet; see ROADMAP.md §1 for the "
-            "training slice")
     pspecs = param_specs(cfg)
+
+    if shape.kind == "train":
+        if cfg.moe is not None or cfg.family in ("moe", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name}: training an MoE block (family {cfg.family!r}) "
+                f"is not ported yet: its expert products write with "
+                f"torch.bmm(..., out=), which autograd does not take; see "
+                f"ROADMAP.md §1 (MoE training)")
+        opt_cfg = opt_cfg or OptConfig(moment_dtype=run.opt_moment_dtype)
+        step = make_train_step(cfg, run, env, opt_cfg)
+        return StepBundle(fn=step, arg_specs=(
+            pspecs, opt_state_specs(pspecs, opt_cfg),
+            batch_specs(cfg, shape, train=True)), donate=(0, 1))
 
     if shape.kind == "prefill":
         if cfg.family == "encdec":
@@ -163,8 +186,9 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device: DeviceLike = None):
-    """A tree of numpy arrays (a JAX parameter tree or decode cache through
-    ``np.asarray``) as tensors on ``device``, dtypes kept."""
+    """A tree of numpy arrays (a JAX parameter tree, decode cache or
+    optimizer state ``{"m", "v", "step"}`` through ``np.asarray``) as
+    tensors on ``device``, dtypes kept."""
     dev = resolve_device(device)
     return shd.tree_map(lambda a: _tensor(a, dev), tree)
 

@@ -14,16 +14,27 @@ cache or an SSM state). Prefill runs each attention layer through the
 ``flash_attention`` kernel on the card (``models.attention``) and each
 Mamba-2 layer through ``ssd_scan`` (``models.ssm``); decode keeps a KV
 cache. An MoE block runs ``moe.apply_moe``, and ``forward`` sums its
-``lb_loss`` and ``z_loss`` over the layers. ``loss_fn`` comes with the
-training slice.
+``lb_loss`` and ``z_loss`` over the layers.
+
+``loss_fn`` is the JAX package's masked next-token cross-entropy over f32
+logits plus the MoE losses; with grad enabled each layer of a stacked
+family is rematerialized as ``run.remat`` says, as that package's
+``jax.checkpoint`` around its scan body: ``"full"`` recomputes the whole
+layer in the backward, ``"block"`` keeps the projections' outputs
+(``aten.mm``, the ``dots_with_no_batch_dims_saveable`` of the JAX policy)
+and recomputes the rest. Remat changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import (MeshEnv, ParamSpec, is_spec,
-                                              spec_map, tree_map)
+                                              spec_map, tree_leaves,
+                                              tree_map)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -94,6 +105,47 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def unbind_layers(tree, n: int) -> list:
+    """The ``n`` per-layer views of a stacked tree. One ``unbind`` a leaf,
+    so autograd stacks the layers' gradients once, not a full-size
+    zero-padded gradient per layer as ``t[i]`` would."""
+    per_leaf = tree_map(torch.unbind, tree)
+    return [tree_map(lambda ts: ts[i], per_leaf,
+                     is_leaf=lambda x: isinstance(x, tuple)) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "block")
+_SAVED_BY_BLOCK = (torch.ops.aten.mm.default,)
+
+
+def _block_policy(ctx, op, *args, **kwargs):
+    return torch_checkpoint.CheckpointPolicy.MUST_SAVE \
+        if op in _SAVED_BY_BLOCK \
+        else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)``, checkpointed as ``remat`` says when autograd records
+    a gradient through it (``torch.utils.checkpoint``, non-reentrant: a
+    recomputed kernel keeps what its own backward needs)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
+    if remat == "none" or not torch.is_grad_enabled() or not any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tree_leaves(args)):
+        return fn(*args)
+    kw = {}
+    if remat == "block":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _block_policy)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
@@ -151,14 +203,17 @@ def logits_fn(cfg: ModelConfig, params, x, env: MeshEnv):
 
 
 def _layer_loop(cfg: ModelConfig, env: MeshEnv, params, x, *, mode: str,
-                positions=None, cache=None, pos=None):
+                positions=None, cache=None, pos=None, remat: str = "none"):
     """The JAX ``lax.scan`` over the stacked blocks, or its unrolled loop
     over the hybrid family's ``layers``. Returns (x, the per-layer caches
     (stacked, or keyed ``str(i)`` for the hybrid family) or None, the
-    layers' ``lb_loss`` and ``z_loss`` summed)."""
+    layers' ``lb_loss`` and ``z_loss`` summed). ``remat`` applies to the
+    stacked families' full-sequence layers, as the JAX package's
+    ``jax.checkpoint`` wraps only its scan body."""
     hybrid = cfg.family == "hybrid"
     if not hybrid:
         layer_specs = strip_layer_axis(_stacked_block_specs(cfg))
+        blocks = unbind_layers(params["blocks"], cfg.num_layers)
     kinds = cfg.layer_kinds()
     caches, aux_sum = [], _moe_aux_zero(x.device)
     for i in range(cfg.num_layers):
@@ -166,12 +221,13 @@ def _layer_loop(cfg: ModelConfig, env: MeshEnv, params, x, *, mode: str,
             p_layer = params["layers"][str(i)]
             c_layer = None if cache is None else cache[str(i)]
         else:
-            p_layer = constrain_params(_layer(params["blocks"], i),
-                                       layer_specs, env)
+            p_layer = constrain_params(blocks[i], layer_specs, env)
             c_layer = None if cache is None else _layer(cache, i)
-        x, nc, aux = _apply_block(cfg, env, p_layer, x, positions,
-                                  kind=kinds[i], is_moe=cfg.layer_is_moe(i),
-                                  mode=mode, cache=c_layer, pos=pos)
+        block = functools.partial(
+            _apply_block, cfg, env, positions=positions, kind=kinds[i],
+            is_moe=cfg.layer_is_moe(i), mode=mode, cache=c_layer, pos=pos)
+        x, nc, aux = remat_call("none" if hybrid else remat, block, p_layer,
+                                x)
         caches.append(nc)
         for k in aux_sum:
             if k in aux:
@@ -185,11 +241,11 @@ def _layer_loop(cfg: ModelConfig, env: MeshEnv, params, x, *, mode: str,
 
 
 def _hidden(cfg: ModelConfig, env: MeshEnv, params, tokens, *, embeds=None,
-            positions=None):
+            positions=None, remat: str = "none"):
     """The last layer's output [B,S,D] of a full-sequence pass and the MoE
     losses summed over the layers, from the tokens or (the vision stub)
     precomputed ``embeds`` [B,S,D]; positions default to 0..S-1 in every
-    row."""
+    row. ``remat`` as in ``loss_fn``."""
     if embeds is not None:
         x = env.constrain(embeds, "batch", "seq", "embed")
         bsz, seq = embeds.shape[:2]
@@ -199,7 +255,7 @@ def _hidden(cfg: ModelConfig, env: MeshEnv, params, tokens, *, embeds=None,
     if positions is None:
         positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
     x, _, aux = _layer_loop(cfg, env, params, x, mode="full",
-                            positions=positions)
+                            positions=positions, remat=remat)
     return x, aux
 
 
@@ -213,6 +269,33 @@ def forward(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, tokens,
     tests' reference)."""
     x, aux = _hidden(cfg, env, params, tokens, **kw)
     return logits_fn(cfg, params, x, env), aux
+
+
+def next_token_loss(logits: torch.Tensor, targets: torch.Tensor):
+    """(mean NLL over the unmasked targets, their count) from f32 logits
+    [B,S,V]; a target of -1 is padding."""
+    mask = (targets >= 0).to(torch.float32)
+    tsafe = torch.clamp(targets, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tsafe[..., None])[..., 0]
+    tokens = torch.sum(mask)
+    return torch.sum((lse - tgt) * mask) / torch.clamp(tokens, min=1.0), \
+        tokens
+
+
+def loss_fn(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, batch):
+    """Next-token CE loss. batch: ``tokens`` (or the vision stub's
+    ``embeds`` and ``positions``) and ``targets`` [B,S] (-1 = pad).
+    Returns (loss + 0.01 lb_loss + 0.001 z_loss, metrics ``loss``,
+    ``lb_loss``, ``z_loss``, ``tokens``)."""
+    x, aux = _hidden(cfg, env, params, batch.get("tokens"),
+                     embeds=batch.get("embeds"),
+                     positions=batch.get("positions"), remat=run.remat)
+    logits = logits_fn(cfg, params, x, env)
+    loss, tokens = next_token_loss(logits, batch["targets"])
+    total = loss + 0.01 * aux["lb_loss"] + 0.001 * aux["z_loss"]
+    return total, {"loss": loss, "lb_loss": aux["lb_loss"],
+                   "z_loss": aux["z_loss"], "tokens": tokens}
 
 
 # ---------------------------------------------------------------------------
@@ -257,5 +340,6 @@ def prefill(cfg: ModelConfig, run: RunConfig, env: MeshEnv, params, tokens,
 
 
 __all__ = ["param_specs", "strip_layer_axis", "constrain_params",
-           "embed_tokens", "logits_fn", "forward", "cache_specs",
-           "decode_step", "prefill"]
+           "unbind_layers", "REMAT_MODES", "remat_call", "embed_tokens",
+           "logits_fn", "forward", "next_token_loss", "loss_fn",
+           "cache_specs", "decode_step", "prefill"]

@@ -184,13 +184,14 @@ def test_dispatch_launches_and_counts(dev):
     ops.attention(q, q, q)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"streamed_matmul": 1,
-                                   "flash_attention": 1, "ssd_scan": 0,
+                                   "flash_attention": 1,
+                                   "flash_attention_bwd": 0, "ssd_scan": 0,
                                    "layout_pack": 0}
     assert ops.launch_counts_by_shape() == {
         "streamed_matmul": {(64, 128, 64): 1},
         "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0, torch.float32):
                             1},
-        "ssd_scan": {}, "layout_pack": {}}
+        "flash_attention_bwd": {}, "ssd_scan": {}, "layout_pack": {}}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -872,3 +873,224 @@ def test_encdec_prefill_and_decode_on_the_card(dev, f32):
     for i in (0, 1):
         torch.testing.assert_close(card[i], cpu[i],
                                    atol=1e-3 if f32 else 0.1, rtol=0)
+
+
+# --- training: the flash_attention backward and the train step ---------------
+
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window): GQA, ragged tails, Sq != Sk
+# (cross attention), window with and without causal, every head size
+FA_BWD_CASES = [(2, 128, 128, 4, 2, 64, True, 0),
+                (1, 100, 100, 4, 1, 128, True, 0),
+                (2, 77, 150, 4, 4, 32, False, 0),
+                (1, 130, 130, 2, 2, 16, True, 48),
+                (1, 96, 96, 8, 2, 64, False, 40),
+                (1, 64, 200, 2, 1, 128, False, 0)]
+
+
+def _bwd_inputs(rng, b, sq, sk, hq, hkv, hd, dtype, dev):
+    q = _normal(rng, (b, sq, hq, hd)).to(dev, dtype)
+    k = _normal(rng, (b, sk, hkv, hd)).to(dev, dtype)
+    v = _normal(rng, (b, sk, hkv, hd)).to(dev, dtype)
+    do = _normal(rng, (b, sq, hq, hd)).to(dev, dtype)
+    return q, k, v, do
+
+
+def _grads_close(got, want, dtype):
+    """dq, dk, dv against autograd of the plain version in f32: relative L2
+    <= 1e-2 and max abs <= 2e-2 max|ref| in bf16 (one rounding of each
+    output and of O in D = rowsum(dO O)), 1e-4 max|ref| in f32 (summation
+    order only)."""
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        lim = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        assert err <= lim * scale, (name, err, scale)
+        if dtype == torch.bfloat16:
+            assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_forward_keeps_o_and_gives_lse(
+        dev, b, sq, sk, hq, hkv, hd, causal, window, dtype):
+    """O with the lse pointer equals O without it bit for bit; the lse is
+    the log-sum-exp of the scaled, masked f32 scores within 1e-4 (f32
+    sums in another order)."""
+    import math
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     forward_with_lse)
+    rng = np.random.default_rng(sq + sk + hd)
+    q, k, v, _ = _bwd_inputs(rng, b, sq, sk, hq, hkv, hd, DTYPES[dtype], dev)
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                          window=window))
+    kk = torch.repeat_interleave(k.float(), hq // hkv, dim=2)
+    s = torch.einsum("bqhd,bphd->bhqp", q.float(), kk) / math.sqrt(hd)
+    qp = torch.arange(sq, device=dev)[:, None]
+    kp = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= (qp - kp) < window
+    want = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_bwd_kernel(dev, b, sq, sk, hq, hkv, hd, causal,
+                                    window, dtype):
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import forward_with_lse
+    rng = np.random.default_rng(7 * sq + sk + hd)
+    dt = DTYPES[dtype]
+    q, k, v, do = _bwd_inputs(rng, b, sq, sk, hq, hkv, hd, dt, dev)
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+    again = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dt and g.shape == x.shape
+               for g, x in zip(got, (q, k, v)))
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+    _grads_close(got, fab.plain(q, k, v, do, causal=causal, window=window),
+                 dt)
+
+
+def test_flash_attention_bwd_row_that_sees_no_key(dev):
+    """A window shorter than Sq - Sk leaves the last rows without a key:
+    their dq is zero, nothing is inf or NaN, and the rows that see keys
+    keep the plain version's gradient."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import forward_with_lse
+    rng = np.random.default_rng(3)
+    q, k, v, do = _bwd_inputs(rng, 1, 96, 40, 2, 2, 64, torch.float32, dev)
+    o, lse = forward_with_lse(q, k, v, causal=True, window=16)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                         window=16)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv, lse))
+    blind = slice(40 + 16 - 1, 96)        # rows q with q - 39 >= 16
+    assert torch.count_nonzero(dq[:, blind]) == 0
+    seen = slice(0, 40 + 16 - 1)
+    want = fab.plain(q[:, seen], k, v, do[:, seen], causal=True, window=16)
+    for got, w in zip((dq[:, seen], dk, dv), want):
+        torch.testing.assert_close(got, w, atol=1e-4, rtol=1e-4)
+
+
+def test_attention_with_grad_launches_both_kernels(dev):
+    from repro_torch.kernels import flash_attention_bwd as fab
+    rng = np.random.default_rng(5)
+    q, k, v, do = _bwd_inputs(rng, 2, 64, 64, 4, 2, 64, torch.bfloat16, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    out = ops.attention(q, k, v)
+    out.backward(do)
+    torch.cuda.synchronize()
+    key = (2, 64, 64, 4, 2, 64, True, 0, torch.bfloat16)
+    assert ops.launch_counts_by_shape()["flash_attention"] == {key: 1}
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {key: 1}
+    _grads_close((q.grad, k.grad, v.grad),
+                 fab.plain(q, k, v, do), torch.bfloat16)
+    with torch.no_grad():
+        ops.attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 2
+
+
+def test_ssd_scan_gradient_raises_on_the_card(dev):
+    rng = np.random.default_rng(2)
+    x, dt, a, b, c, d = _ssd_inputs(rng, 1, 64, 2, 16, 8, dev)
+    x.requires_grad_()
+    y = ops.ssd(x, dt, a, b, c, d, chunk=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
+
+
+def _tiny_train(name, dev, remat="full", f32=False):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    arch = get_arch(name)
+    arch = replace(arch, model=arch.model.reduced(),
+                   run_overrides={"t": RunConfig(microbatch=2, remat=remat)})
+    bundle = model.make_step_bundle(arch, ShapeConfig("t", 64, 4, "train"),
+                                    make_host_mesh(device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt, batch = model.init_inputs(bundle, gen, dev)
+    if f32:
+        params = shd.tree_map(lambda t: t.float(), params)
+    opt["step"].zero_()
+    batch["tokens"] = torch.randint(0, arch.model.vocab, (4, 64),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+    batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
+    return bundle, params, opt, batch
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "block"])
+def test_train_step_on_the_card_remat_keeps_values(dev, remat):
+    """A reduced Yi-6B step (2 microbatches) through the kernels: finite
+    loss, each attention of each microbatch one forward launch (two under
+    remat: the recompute) and one backward launch, and the same loss and
+    parameters whatever the remat."""
+    from repro_torch.distributed import sharding as shd
+    bundle, params, opt, batch = _tiny_train("yi-6b", dev, remat)
+    base_b, base_p, base_o, _ = _tiny_train("yi-6b", dev, "none")
+    ops.reset_launch_counts()
+    params, opt, m = bundle.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    n = bundle.arg_specs[0]["blocks"]["attn"]["wq"].shape[0] * 2
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == n * (1 if remat == "none" else 2)
+    assert counts["flash_attention_bwd"] == n
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    base_p, _, bm = base_b.fn(base_p, base_o, batch)
+    assert torch.equal(m["loss"], bm["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        shd.tree_leaves(params), shd.tree_leaves(base_p)))
+
+
+def test_train_step_on_the_card_matches_the_plain_versions(dev):
+    """The same f32 step with attention through the kernels and through
+    flash_attention_ref on the card: losses within 1e-5 relative,
+    gradient norms within 1e-4 relative, and two kernel runs bit-equal."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.distributed import sharding as shd
+    runs = []
+    for plain in (False, False, True):
+        bundle, params, opt, batch = _tiny_train("yi-6b", dev, f32=True)
+        ctx = mock.patch.object(ops, "attention", ref.flash_attention_ref) \
+            if plain else contextlib.nullcontext()
+        with ctx:
+            params, opt, m = bundle.fn(params, opt, batch)
+        runs.append((m, shd.tree_leaves(params)))
+    (m1, p1), (m2, p2), (m3, _) = runs
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+    torch.testing.assert_close(m1["loss"], m3["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m1["grad_norm"], m3["grad_norm"], rtol=1e-4,
+                               atol=0)
+
+
+def test_train_bundles_of_moe_and_hybrid_raise_and_ssm_raises_in_backward(
+        dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    env = make_host_mesh(device=dev)
+    shape = ShapeConfig("t", 32, 2, "train")
+    for name in ("qwen3-moe-30b-a3b", "jamba-v0.1-52b"):
+        arch = get_arch(name)
+        arch = replace(arch, model=arch.model.reduced())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model.make_step_bundle(arch, shape, env)
+    bundle, params, opt, batch = _tiny_train("mamba2-130m", dev, "none")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bundle.fn(params, opt, batch)

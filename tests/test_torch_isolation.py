@@ -97,7 +97,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                ref.ssd_ref(x, dt, a, bc, bc, d),
                                atol=0, rtol=0)
     assert torch.equal(ops.pack(a[None]), ref.layout_pack_ref(a[None]))
-    names = ("streamed_matmul", "flash_attention", "ssd_scan", "layout_pack")
+    names = ("streamed_matmul", "flash_attention", "flash_attention_bwd",
+             "ssd_scan", "layout_pack")
     assert ops.launch_counts() == {n: 0 for n in names}
     assert ops.launch_counts_by_shape() == {n: {} for n in names}
 
@@ -111,6 +112,10 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     q = torch.zeros((1, 4, 1, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    lse = torch.zeros((1, 1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, q, q, q, lse, q)
     from repro_torch.kernels.layout_pack import layout_pack
     from repro_torch.kernels.ssd_scan import ssd_scan
     h = torch.zeros(1)

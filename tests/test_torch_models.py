@@ -469,17 +469,27 @@ def test_decode_from_zero_cache_matches_prefill(f32):
 
 @pytest.mark.parametrize("what", ["train", "hybrid", "encdec"])
 def test_unported_paths_raise(what):
-    """The training step of each family (the SSM, hybrid and enc-dec
-    families here) waits for the training slice and raises, naming the
-    roadmap; prefill and decode of every family run
-    (tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
+    """The hybrid family's training step (its MoE blocks have no
+    differentiable path yet) raises, naming the roadmap; the SSM and
+    enc-dec families' train bundles build, with the parameters, the
+    optimizer state and the batch as inputs, the first two donated
+    (tests/test_torch_training.py runs them against the JAX package);
+    prefill and decode of every family run (tests/test_torch_hybrid.py,
+    tests/test_torch_encdec.py)."""
     env = make_host_mesh(device=CPU)
     names = {"hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
              "train": "mamba2-130m"}
     cfg = get_arch(names[what]).model.reduced()
     arch = ArchConfig(model=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, "train"), env)
+    train = ShapeConfig("x", 32, 1, "train")
+    if what == "hybrid":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tmodel.make_step_bundle(arch, train, env)
+    else:
+        bundle = tmodel.make_step_bundle(arch, train, env)
+        assert bundle.donate == (0, 1)
+        assert set(bundle.arg_specs[1]) == {"m", "v", "step"}
+        assert "targets" in bundle.arg_specs[2]
     for kind in ("prefill", "decode"):
         tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, kind), env)
 

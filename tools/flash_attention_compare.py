@@ -2,14 +2,19 @@
 
     python3 tools/flash_attention_compare.py OLD.cu NEW.cu
 
-Builds both sources (each must keep the C interface of
-``src/repro_torch/kernels/csrc/flash_attention.cu``), holds each against
+Builds both sources (each with the C interface of
+``src/repro_torch/kernels/csrc/flash_attention.cu``, with or without its
+``lse`` pointer, which is passed null: the forward alone), holds each against
 ``kernels.ref.flash_attention_ref`` at the shapes below (f32 within 2e-5;
 bf16 within 2e-2, one bf16 ulp above a 1e-3 floor and 1e-2 relative L2)
 and times each shape's device time (CUDA events around 20 back-to-back
-calls, median of 5 rounds) in the order old, new, new, old, twice:
+calls, median of 5 rounds) in the order old, new, new, old, twice, and
+prints whether the two give the same output bits:
 
 * the Yi-6B prefill, (2, 4096, 4096, 32, 4, 128), causal, bf16;
+* Whisper-small's three keys in bf16: the encoder (8, 1500, 1500, 12, 12,
+  64) bidirectional, cross-attention (8, 448, 1500, ...) and the decoder's
+  causal self-attention (8, 448, 448, ...);
 * the serving path, GPT-Neo-1.3B (1, 1024, 1024, 16, 16, 128) and
   GPT-Neo-S (1, 1024, 1024, 12, 12, 64), causal, f32.
 
@@ -33,21 +38,30 @@ from repro_torch.kernels.flash_attention import _ARGTYPES, _DTYPES
 OUT = ROOT / "build" / "fa_compare"
 # (B, Sq, Sk, Hq, Hkv, hd, causal, dtype)
 SHAPES = {"yi-6b prefill": (2, 4096, 4096, 32, 4, 128, True, torch.bfloat16),
+          "whisper encoder": (8, 1500, 1500, 12, 12, 64, False,
+                              torch.bfloat16),
+          "whisper cross": (8, 448, 1500, 12, 12, 64, False, torch.bfloat16),
+          "whisper self": (8, 448, 448, 12, 12, 64, True, torch.bfloat16),
           "gptneo-1.3b": (1, 1024, 1024, 16, 16, 128, True, torch.float32),
           "gptneo-s": (1, 1024, 1024, 12, 12, 64, True, torch.float32)}
 CALLS, ROUNDS = 20, 5
 
 
-def entry(lib: Path):
+def entry(lib: Path, source: str):
+    """(entry point, whether it takes the lse pointer after o)."""
+    takes_lse = "void* lse" in source
     fn = ctypes.CDLL(str(lib)).fm_flash_attention
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    return fn
+    fn.argtypes = _ARGTYPES if takes_lse else _ARGTYPES[:4] + _ARGTYPES[5:]
+    fn.restype = ctypes.c_int
+    return fn, takes_lse
 
 
 def launch(fn, q, k, v, o, causal):
+    fn, takes_lse = fn
     b, sq, hq, hd = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq,
-             k.shape[1], hq, k.shape[2], hd, int(causal), 0,
+    lse = (0,) if takes_lse else ()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *lse, b,
+             sq, k.shape[1], hq, k.shape[2], hd, int(causal), 0,
              1.0 / math.sqrt(hd), _DTYPES[q.dtype],
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -97,9 +111,10 @@ def main(argv) -> int:
         print("flash_attention_compare: needs an NVIDIA card", file=sys.stderr)
         return 2
     print(f"[device] {smi()}", flush=True)
-    fns = {name: entry(lib) for name, lib in build(
-        {name: Path(path).read_text()
-         for name, path in zip(("old", "new"), argv)}, OUT).items()}
+    sources = {name: Path(path).read_text()
+               for name, path in zip(("old", "new"), argv)}
+    fns = {name: entry(lib, sources[name])
+           for name, lib in build(sources, OUT).items()}
     dev = torch.device("cuda:0")
     gen = torch.Generator(device="cpu").manual_seed(0)
     for label, (b, sq, sk, hq, hkv, hd, causal, dt) in SHAPES.items():
@@ -108,11 +123,15 @@ def main(argv) -> int:
         o = torch.empty_like(q)
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         flops = 4.0 * hd * hq * b * (sq * (sq + 1) / 2 if causal else sq * sk)
+        outs = {}
         for name, fn in fns.items():
             launch(fn, q, k, v, o, causal)
             torch.cuda.synchronize()
             err = check(o, want, dt, f"{name} at {label}")
+            outs[name] = o.clone()
             print(f"[{label}] {name}: max abs err {err:.3e}", flush=True)
+        print(f"[{label}] old and new outputs bit-equal: "
+              f"{torch.equal(outs['old'], outs['new'])}", flush=True)
         times = {"old": [], "new": []}
         for rnd in range(2):
             for name in ("old", "new", "new", "old"):
