@@ -70,7 +70,8 @@ executors, then drives each path through the port's own entry points:
   rest, idle); the step at 2 layers and 2 x 512 through the kernels
   against it through the plain versions over 4 seeds, two kernel runs
   bit-equal, one step with int8 compression; Whisper-small at full size,
-  one step of 8 x (1500 frames, 448 tokens); a checkpoint round trip
+  one step of 8 x (1500 frames, 448 tokens) and one more under the
+  profiler; a checkpoint round trip
   (step 3 after restoring step 2 bit-equal to the uninterrupted run); and
   one step of ``python -m repro_torch.launch.train --smoke``.
 
@@ -677,6 +678,60 @@ def rejection_log():
             mock.patch.object(ServingEngine, "_release_protection",
                               counted_release):
         yield events
+
+
+@contextlib.contextmanager
+def residency_at_peak():
+    """While open, each streaming run's residency (the pool's bytes plus
+    the run's transients plus the loader's in-flight bytes, as
+    ``StreamingExecutor._residency`` counts it) is split at the op where it
+    peaks into the running model's own pool bytes, its transients, its
+    in-flight bytes and the other models' pool bytes, with the pinned
+    bytes of each side: one dict a run, in the order the runs began."""
+    from repro_torch.core.streaming import StreamingExecutor
+    runs = {}
+    residency = StreamingExecutor._residency
+
+    def split(ex, dev_, loader, transient):
+        total = residency(ex, dev_, loader, transient)
+        cache, key = ex.cache, ex.cache_key
+        if cache is None:
+            return total
+        with cache._lock:
+            own = cache.model_bytes(key)
+            pinned = {True: 0, False: 0}     # own, the other models'
+            for k, e in cache._entries.items():
+                if e.pins:
+                    pinned[cache._model_of(k) == key] += e.nbytes
+            used = cache.used_bytes()
+        with loader.lock:
+            inflight = sum(loader.uncached_bytes.values())
+        rec = runs.setdefault(id(loader), {"model": key, "peak": -1})
+        if total > rec["peak"]:
+            rec.update(peak=total, own=own, pinned=pinned[True],
+                       other=used - own, other_pinned=pinned[False],
+                       transient=sum(transient.values()), inflight=inflight)
+        return total
+
+    with mock.patch.object(StreamingExecutor, "_residency", split):
+        yield runs
+
+
+def log_own_residency(tag: str, engine, runs) -> None:
+    """Each request's executed peak split by ``residency_at_peak``, beside
+    the running model's planned peak."""
+    peaks = dict(engine.multi_plan.peaks)
+    mb = lambda x: round(x / 1e6, 1)
+    for i, r in enumerate(runs.values()):
+        planned = peaks.get(r["model"])
+        log(f"[{tag}] run {i} {r['model']}: planned peak "
+            f"{None if planned is None else mb(planned)} MB; at its "
+            f"executed peak {mb(r['peak'])} MB: own pool {mb(r['own'])} MB "
+            f"(pinned {mb(r['pinned'])}), transient {mb(r['transient'])}, in "
+            f"flight {mb(r['inflight'])}, own total "
+            f"{mb(r['own'] + r['transient'] + r['inflight'])} MB; other "
+            f"models' pool {mb(r['other'])} MB (pinned "
+            f"{mb(r['other_pinned'])})")
 
 
 def log_over_budget(tag: str, engine, budget: int, rejected) -> None:
@@ -1636,9 +1691,16 @@ def measure_bwd(key, peaks) -> dict:
     library, lib_dev = call_ms(lib, n=5), device_ms(lib, n=5, rounds=3)
     flops, nbytes = bwd_work(key)
     bms, bby = bound_ms(flops, nbytes, peaks, dt)
-    usage = ptxas_usage(_build.BUILD_LOG.get("flash_attention_bwd",
-                                             {}).get("log", ""))
-    tname = "I13__nv_bfloat16" if dt == torch.bfloat16 else "If"
+    build_log = _build.BUILD_LOG.get("flash_attention_bwd",
+                                     {}).get("log", "")
+    # ptxas's notes that it serialized the tensor-core products
+    serialized = re.findall(r"C75(?:11|14|17)[^\n]*", build_log)
+    check(not serialized, f"flash_attention_bwd: ptxas serialized wgmma: "
+          f"{serialized}")
+    usage = ptxas_usage(build_log)
+    # the entries of the kernels at this dtype and head size: f32
+    # dkdv_kernel<float, hd>, bf16 tc::dkdv_kernel<hd> (and dq_kernel)
+    tname = "I" if dt == torch.bfloat16 else "If"
     regs = [usage.get(n) for n in usage
             if f"kernel{tname}Li{hd}E" in n and ("dkdv" in n or "dq_k" in n)]
     r = {"ms": call_ms(kern, n=5), "plain_ms": call_ms(plain, n=5),
@@ -1754,7 +1816,8 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     the kernels against it through the plain versions over 4 seeds, two
     kernel runs bit-equal, and one step with int8 compression; (d)
     Whisper-small at full size, one step of 8 x (1500 frames, 448
-    tokens); (e) a checkpoint round trip; (f) one step of the CLI.
+    tokens) and one more under the profiler; (e) a checkpoint round trip;
+    (f) one step of the CLI.
     Returns the launches of (b) and (d) by (kernel, key), the backward's
     numbers by key and the checks' readings."""
     import tempfile
@@ -1952,6 +2015,15 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
         f"{ {f'{kn}{k}': c for (kn, k), c in sorted(wgot.items(), key=str)} }"
         f" (12 encoder, 12 cross, 12 causal self: forward, remat "
         f"recompute, backward)")
+    with no_plain_attention():
+        wprof_wall, wprof = profiled_step(
+            lambda: wbundle.fn(wparams, wopt, wbatch))
+    wsplit, _, wbusy, widle = train_split(wprof, wprof_wall)
+    del wprof
+    log(f"[train] {ENCDEC} profiled step: wall {wprof_wall:.3f} s; device "
+        f"time " + ", ".join(f"{k} {v:.1f} ms ({v / wbusy:.1%})"
+                             for k, v in wsplit.items())
+        + f"; busy {wbusy:.1f} ms, idle {widle:.1%} of the profiled wall")
     out["whisper_wall"] = wwall
     del wparams, wopt, wbundle, wbatch
     torch.cuda.empty_cache()
@@ -2475,7 +2547,8 @@ def main() -> int:
     copied0 = HostToDevice.copied_bytes
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    with eviction_log() as evicted, rejection_log() as rejected:
+    with eviction_log() as evicted, rejection_log() as rejected, \
+            residency_at_peak() as own_peaks:
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     serve_shapes = Counter({(kn, key): c for kn, by_shape in
@@ -2501,6 +2574,7 @@ def main() -> int:
           f"launch counts by shape differ from the graphs: counted "
           f"{sorted(serve_shapes.items())}, expected {sorted(expected.items())}")
     budget = BUDGET_MB << 20
+    log_own_residency("serve", engine, own_peaks)
     log_over_budget("serve", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
           f"pool peak {engine.peak_memory()} > budget {budget}")
@@ -2595,12 +2669,14 @@ def main() -> int:
     copied0 = HostToDevice.copied_bytes
     with mock.patch.object(HWSpec, "cuda_calibrated",
                            staticmethod(previous_rate)), \
-            eviction_log() as evicted, rejection_log() as rejected:
+            eviction_log() as evicted, rejection_log() as rejected, \
+            residency_at_peak() as own_peaks:
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     check(engine.hw.peak_flops == PREVIOUS_PEAK_FLOPS,
           f"the engine planned with {engine.hw}")
     check(len(responses) == REQUESTS, f"{len(responses)} responses")
+    log_own_residency("serve-previous-rate", engine, own_peaks)
     log_over_budget("serve-previous-rate", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
           f"pool peak {engine.peak_memory()} > budget {budget}")

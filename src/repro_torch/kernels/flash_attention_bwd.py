@@ -3,7 +3,8 @@ forward's output and its rows' log-sum-exp.
 
 The CUDA source is ``csrc/flash_attention_bwd.cu`` (three launches: D =
 rowsum(dO * O), then a dK/dV kernel over key tiles and a dQ kernel over
-query tiles, no atomics). It replaces no Pallas kernel: the JAX package
+query tiles, no atomics; bf16 on the tensor cores, f32 on the FMA
+units). It replaces no Pallas kernel: the JAX package
 differentiates plain jnp attention with ``jax.value_and_grad``; the
 source's header says what bounds the kernel and what its design does.
 ``flash_attention_bwd`` launches it on CUDA tensors; ``plain`` is autograd

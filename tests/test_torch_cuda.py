@@ -939,8 +939,17 @@ def test_flash_attention_forward_keeps_o_and_gives_lse(
     torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", FA_BWD_CASES)
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+# bf16 only: the tensor-core kernels' 128-row blocks at ragged tails (200
+# queries, 333 keys), a GQA group of 4 with a window, and hd 32 padded
+FA_BWD_BF16_CASES = [(1, 200, 333, 8, 2, 128, True, 0),
+                     (1, 300, 300, 8, 2, 64, True, 100),
+                     (2, 190, 190, 4, 2, 32, False, 0)]
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,hd,causal,window,dtype",
+    [(*c, d) for c in FA_BWD_CASES for d in sorted(DTYPES)]
+    + [(*c, "bfloat16") for c in FA_BWD_BF16_CASES])
 def test_flash_attention_bwd_kernel(dev, b, sq, sk, hq, hkv, hd, causal,
                                     window, dtype):
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -961,14 +970,56 @@ def test_flash_attention_bwd_kernel(dev, b, sq, sk, hq, hkv, hd, causal,
                  dt)
 
 
-def test_flash_attention_bwd_row_that_sees_no_key(dev):
+# SHA-256 of the f32 dq, dk, dv bytes at FA_BWD_CASES on the inputs of
+# test_flash_attention_bwd_kernel, from the FMA kernels as they were before
+# the bf16 path moved to the tensor cores (the "[f32-digest]" lines of
+# ``tools/flash_attention_bwd_compare.py --digests`` on an H100)
+FA_BWD_F32_SHA256 = {
+    (2, 128, 128, 4, 2, 64, True, 0):
+        "a05dc9620844660dc1079cbe3b344c0ba9452ab19fc5551685d219c97e3a7e0f",
+    (1, 100, 100, 4, 1, 128, True, 0):
+        "79f1375076b28d50b392a05b421ba7a1955a9a7f7c4652903eeb45f93d3e88b8",
+    (2, 77, 150, 4, 4, 32, False, 0):
+        "1b4de65e31f3a2a67311588a07606d22aad0f7b06654db91fa4b973362237ced",
+    (1, 130, 130, 2, 2, 16, True, 48):
+        "35e896eb5b3c6e853c6985f3af1a2e6677f45a27c4df9703debff64563dfac61",
+    (1, 96, 96, 8, 2, 64, False, 40):
+        "ff6dcca6e7dfed3e1406393243efc63d5bb1a157899800685364217ca5e11d87",
+    (1, 64, 200, 2, 1, 128, False, 0):
+        "a99d024a4bfe0ba59a9744c8bf66def723f28ba390829ff0f8ae27c926d7d1db"}
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", FA_BWD_CASES)
+def test_flash_attention_bwd_f32_outputs_are_unchanged(
+        dev, b, sq, sk, hq, hkv, hd, causal, window):
+    """The f32 path keeps its FMA kernels: its outputs are bit-equal to
+    theirs as recorded."""
+    import hashlib
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import forward_with_lse
+    rng = np.random.default_rng(7 * sq + sk + hd)
+    q, k, v, do = _bwd_inputs(rng, b, sq, sk, hq, hkv, hd, torch.float32,
+                              dev)
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+    h = hashlib.sha256()
+    for t in fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window):
+        h.update(t.cpu().numpy().tobytes())
+    assert h.hexdigest() == FA_BWD_F32_SHA256[
+        (b, sq, sk, hq, hkv, hd, causal, window)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_bwd_row_that_sees_no_key(dev, dtype):
     """A window shorter than Sq - Sk leaves the last rows without a key:
     their dq is zero, nothing is inf or NaN, and the rows that see keys
-    keep the plain version's gradient."""
+    keep the plain version's gradient (f32 within 1e-4; bf16, on the
+    tensor-core kernels, within the bf16 bounds)."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import forward_with_lse
     rng = np.random.default_rng(3)
-    q, k, v, do = _bwd_inputs(rng, 1, 96, 40, 2, 2, 64, torch.float32, dev)
+    dt = DTYPES[dtype]
+    q, k, v, do = _bwd_inputs(rng, 1, 96, 40, 2, 2, 64, dt, dev)
     o, lse = forward_with_lse(q, k, v, causal=True, window=16)
     dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
                                          window=16)
@@ -977,6 +1028,9 @@ def test_flash_attention_bwd_row_that_sees_no_key(dev):
     assert torch.count_nonzero(dq[:, blind]) == 0
     seen = slice(0, 40 + 16 - 1)
     want = fab.plain(q[:, seen], k, v, do[:, seen], causal=True, window=16)
+    if dt == torch.bfloat16:
+        _grads_close((dq[:, seen], dk, dv), want, dt)
+        return
     for got, w in zip((dq[:, seen], dk, dv), want):
         torch.testing.assert_close(got, w, atol=1e-4, rtol=1e-4)
 

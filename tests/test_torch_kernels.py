@@ -235,6 +235,72 @@ def test_tc_attention_p_split_keeps_16_bits():
     assert ((hi - p).abs() / p).max().item() > 2 ** -10
 
 
+
+def _tc_attention_bwd_emulation(q, k, v, o, do, causal, window):
+    """The rounding points of the bf16 tensor-core ``flash_attention``
+    backward, written out in PyTorch: S and dP from bf16 operands summed in
+    f32; P = exp2(S scale log2 e - lse log2 e) where the pair is visible,
+    else 0, with lse the f32 log-sum-exp of the scaled, masked scores;
+    D = rowsum(dO O) in f32 from the forward's bf16 O; P and
+    dS = P (dP - D) each rounded once to bf16 before their products, whose
+    sums are f32; dq, dk, dv rounded to bf16."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    rep = lambda t: torch.repeat_interleave(t.float(), hq // hkv, dim=2)
+    qf, kf, vf, dof = q.float(), rep(k), rep(v), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    rows = torch.arange(sq)[:, None]
+    keys = torch.arange(sk)[None]
+    vis = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        vis &= rows >= keys
+    if window:
+        vis &= rows - keys < window
+    lse = torch.logsumexp(torch.where(vis, s * scale, -torch.inf), dim=-1)
+    log2e = math.log2(math.e)
+    p = torch.where(vis, torch.exp2(s * (scale * log2e)
+                                    - (lse * log2e)[..., None]), 0.0)
+    d = (dof * o.float()).sum(-1).transpose(1, 2)            # [b, h, q]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - d[..., None])
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, kf) * scale
+    group = lambda t: t.reshape(b, sk, hkv, hq // hkv, hd).sum(3)
+    return dq.bfloat16(), group(dk).bfloat16(), group(dv).bfloat16()
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("sk,causal,window",
+                         [(200, *m) for m in MASKS] + [(333, False, 0)])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_tc_attention_bwd_design_within_card_bounds(hd, sk, causal, window,
+                                                    q_scale):
+    """The bf16 backward kernel's rounding points (P and dS rounded once
+    to bf16) against ``flash_attention_bwd.plain``, autograd of the plain
+    version in f32, within the card's bounds: relative L2 <= 1e-2 and max
+    abs <= 2e-2 max|ref| for each of dq, dk, dv. A ragged length (200 =
+    3 tiles and 8 rows), 333 keys for 200 queries (bidirectional, as cross
+    attention), a GQA group of 2; q scaled by 8 gives scores of some
+    tens."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    rng = np.random.default_rng(hd * 5 + int(q_scale) + window + sk)
+    q = torch.from_numpy(_normal(rng, (1, 200, 4, hd)) * q_scale).bfloat16()
+    k, v = (torch.from_numpy(_normal(rng, (1, sk, 2, hd))).bfloat16()
+            for _ in range(2))
+    do = torch.from_numpy(_normal(rng, (1, 200, 4, hd))).bfloat16()
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = _tc_attention_bwd_emulation(q, k, v, o, do, causal, window)
+    want = fab.plain(q, k, v, do, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g = g.float()
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert err <= 2e-2 * w.abs().max().item(), (name, err)
+        assert rel <= 1e-2, (name, rel)
+
 # (R, C, tr, tc, itemsize, bytes the input and the output start past a
 # 16-byte boundary, the path): the native tiles, row padding, column
 # padding, runs that are not whole vectors, short runs of whole vectors,
