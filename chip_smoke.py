@@ -71,9 +71,19 @@ executors, then drives each path through the port's own entry points:
   against it through the plain versions over 4 seeds, two kernel runs
   bit-equal, one step with int8 compression; Whisper-small at full size,
   one step of 8 x (1500 frames, 448 tokens) and one more under the
-  profiler; a checkpoint round trip
-  (step 3 after restoring step 2 bit-equal to the uninterrupted run); and
-  one step of ``python -m repro_torch.launch.train --smoke``.
+  profiler; a checkpoint round trip (step 3 after restoring step 2
+  bit-equal to the uninterrupted run); and one step of ``python -m
+  repro_torch.launch.train --smoke``. Then the SSM family (phase 9e): the
+  ``ssd_scan`` backward kernel against autograd of its plain version at
+  the Mamba-2 training key, Jamba's key, a chunk where dt a takes both
+  signs and a length whose chunk halves, two runs bit-equal;
+  Mamba-2-130M at full width and all 24 layers (bf16, f32 AdamW moments,
+  random weights from a seed), three steps of 8 x 4096 tokens in 4
+  microbatches with remat (192 forward and 96 backward ``ssd_scan``
+  launches a step, no plain SSD) and one more under the profiler; the
+  step at 2 layers and 2 x 512 through the kernels against it through the
+  plain versions over 4 seeds, two kernel runs bit-equal; and one step of
+  ``python -m repro_torch.launch.train --arch mamba2-130m --smoke``.
 
 The launch counts are set to 0 just before each path and read just after;
 on the serving and fleet paths they must equal the graphs' counts over
@@ -276,6 +286,24 @@ BWD_KEYS = ((2, 4096, 4096, 32, 4, 128, True, 0, torch.bfloat16),
             (8, 448, 448, 12, 12, 64, True, 0, torch.bfloat16),
             (2, 1000, 1000, 8, 2, 128, True, 256, torch.bfloat16),
             (1, 1024, 1024, 12, 12, 64, True, 0, torch.float32))
+# phase 9e, the SSM family: Mamba-2-130M at full width and all 24 layers
+# (about 129M parameters, 1.6 GB at 12 B a parameter), bf16 with f32 AdamW
+# moments, drawn from a seed of its own (the step check's are CHECK_SEEDS),
+# batches and microbatches as yi6b-train's
+MAMBA_TRAIN_SEED = 12
+# the ssd_scan backward against autograd of its plain version in f32 on
+# the same inputs (the order of f32 sums only: each gradient within
+# BWD_F32_MAX of its largest element), at (the forward's key, the chunk
+# asked, dt a of both signs in a chunk): the Mamba-2 training key, Jamba's
+# (timed and checked, launched on no path: the hybrid family does not
+# train yet), a chunk where dt a rises and falls, and a length whose chunk
+# halves (96 % 64 -> 32)
+SSD_BWD_CASES = (((2, 4096, 24, 64, 128, 256), 256, False),
+                 ((2, 4096, 128, 64, 16, 256), 256, False),
+                 ((1, 512, 8, 64, 32, 256), 256, True),
+                 ((2, 96, 4, 16, 8, 32), 64, False))
+# profiler names of the ssd_scan backward's seven kernels
+SSD_BWD_NAMES = re.compile(r"bwd_(?:dstate|pass|dx|dg|dbc|dl|sums)_kernel")
 # a bf16 flash_attention output against its plain version: both round an
 # f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
 # above a floor for outputs near zero; the rounding alone gives a relative
@@ -302,15 +330,17 @@ LOGIT_ATOL = 6e-2
 LOGIT_REL_L2 = 0.1
 SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in
            ("streamed_matmul", "flash_attention", "flash_attention_bwd",
-            "ssd_scan", "layout_pack")}
-# the backward replaces no Pallas kernel: it is the gradient of the
+            "ssd_scan", "ssd_scan_bwd", "layout_pack")}
+# the backwards replace no Pallas kernel: each is the gradient of the
 # function the forward's Pallas kernel computes, which the JAX package
-# takes by differentiating jnp attention; its label names no pallas_call
+# takes by differentiating jnp attention or the jnp ssd_chunked; their
+# labels name no pallas_call
 REPLACES = {"streamed_matmul": "src/repro/kernels/streamed_matmul.py:66",
             "flash_attention": "src/repro/kernels/flash_attention.py:111",
             "flash_attention_bwd":
                 "gradient of src/repro/kernels/flash_attention.py:111",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:97",
+            "ssd_scan_bwd": "gradient of src/repro/kernels/ssd_scan.py:97",
             "layout_pack": "src/repro/kernels/layout_pack.py:37"}
 
 
@@ -735,8 +765,9 @@ def log_own_residency(tag: str, engine, runs) -> None:
 
 
 def log_over_budget(tag: str, engine, budget: int, rejected) -> None:
-    """Where the pool's peak passed its budget, what the plan expected and
-    what the pool refused, before the check fails."""
+    """Where the pool's peak passed its budget, the HWSpec the engine
+    planned with, what the plan expected and what the pool refused, before
+    the check fails."""
     if engine.peak_memory() <= budget:
         return
     by_request = Counter()
@@ -745,7 +776,9 @@ def log_over_budget(tag: str, engine, budget: int, rejected) -> None:
     peaks = dict(engine.multi_plan.peaks)
     limits = {n: engine._prefetch_limit(n) for n in peaks}
     log(f"[{tag}] pool peak {engine.peak_memory()} over the budget {budget}: "
-        f"planned peaks {peaks} B, prefetch limits {limits} B; per request "
+        f"planned with {engine.hw} (fits_budget "
+        f"{engine.multi_plan.fits_budget()}), peaks {peaks} B, prefetch "
+        f"limits {limits} B; per request "
         f"(model, peak) "
         f"{[(s.model, s.peak_bytes) for s in engine.stats_log]}; bytes the "
         f"pool refused by (request, thread, model) {dict(by_request)}")
@@ -1726,13 +1759,187 @@ def measure_bwd(key, peaks) -> dict:
     return r
 
 
+def ssd_bwd_work(key) -> tuple:
+    """(FLOPs, bytes) of one ``ssd_scan_bwd`` call at the forward's key
+    (B, S, H, P, N, Q), f32. Per head and chunk: four [Q x N x P] products
+    (E = C^T (exp(L) dy), u = B dS, S_in dy for dc, dS X for db: 2QNP
+    each), two over the Q(Q+1)/2 causal pairs (v from dy, dy . X for dG:
+    2P a pair each), the reverse state walk (2NP) and four dots a step (K,
+    T, dy . (y - d x), dy . x: 2P each); per batch row and chunk dG B and
+    dG^T C over the causal pairs (2N a pair each). C B^T is the forward's,
+    read, not formed again. Bytes: dy, x, y, dt, b, c, a, d and the
+    forward's L, exp(L_Q), S_in and causal C B^T tiles read once, the six
+    gradients written once."""
+    b, s, h, p, n, q = key
+    nc, pairs = s // q, q * (q + 1) / 2
+    tiles = -(-q // 64)
+    g_tiles = b * nc * tiles * (tiles + 1) / 2 * 64 * 64
+    flops = b * nc * (h * (8.0 * q * n * p + 4.0 * pairs * p + 2.0 * n * p
+                           + 8.0 * q * p) + 4.0 * pairs * n)
+    return flops, 4.0 * (4 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
+                         + 4 * h + b * h * s + b * h * nc
+                         + b * h * nc * n * p + g_tiles)
+
+
+def traced_kernels_ms(fn, names, expect: int) -> Counter:
+    """Device time in ms of one call of ``fn`` by kernel name (the match of
+    ``names``), by the profiler, traced as ``kernel_device_ms`` traces: a
+    warm-up round and a kept one, each between 10 ms of idle time, traced
+    again (up to ``TRACES`` traces) while the kept round lost some of the
+    ``expect`` kernels; empty when every trace lost them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACES):
+        events = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: events.extend(
+                         (ev.name, ev.time_range.elapsed_us())
+                         for ev in p.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+                     ) as prof:
+            for _ in range(2):
+                time.sleep(0.01)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+                prof.step()
+        out = Counter()
+        for name, us in events:
+            m = names.search(name)
+            if m:
+                out[m.group(0)] += us / 1e3
+        if len(out) == expect:
+            return out
+        log(f"[timing] a trace kept {dict(out)} of {expect} kernels; traced "
+            f"again")
+    return Counter()
+
+
+def ssd_bwd_inputs(key, swing: bool) -> tuple:
+    """dy and the SSD operands at ``key`` (B, S, H, P, N, Q) on the card,
+    from a seed, as the model hands them over: x, b and c slices of one
+    conv output, dt softplus'ed, a negative, d and dy from a normal. With
+    ``swing``, dt a of heads 0 and 1 takes both signs in batch row 0's
+    first chunk: L rises 12 nats over its first quarter, falls 12 over the
+    next eighth, then falls slowly."""
+    b, s, h, p, n, q = key
+    gen = torch.Generator(device="cuda").manual_seed(sum(key))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    xbc = rnd(b, s, h * p + 2 * n)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    a = -torch.exp(0.5 * rnd(h))
+    d, dy = rnd(h), rnd(b, s, h, p)
+    if swing:
+        up, down = q // 4, q // 8
+        wave = torch.full((q,), 0.05, device="cuda")
+        wave[:up], wave[up:up + down] = -12.0 / up, 12.0 / down
+        a[:2] = -1.0
+        dt[0, :q, :2] = wave[:, None]
+    return dy, x, dt, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:], d
+
+
+def measure_ssd_bwd(key, chunk: int, swing: bool, peaks) -> dict:
+    """The ``ssd_scan`` backward kernel at ``key`` (the forward's ``chunk``
+    asked; dt a of both signs in a chunk with ``swing``) against autograd
+    of its plain version in f32 on the same inputs: all six gradients
+    finite and each within ``BWD_F32_MAX`` of its largest element, and
+    two runs bit-equal. Timed (one call between CUDA events, median of 5;
+    device time, events around 5 back-to-back calls, median of 3 rounds)
+    beside the plain version; its seven kernels' device time by the
+    profiler, and the registers and spills of the one with the most
+    registers. No single PyTorch call computes this gradient: no library
+    time."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan_bwd as sbw
+    from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan_saving
+    check(chunk_len(key[1], chunk) == key[5],
+          f"ssd_scan_bwd case {key}: chunk {chunk}")
+    dy, *ins = ssd_bwd_inputs(key, swing)
+    y, saved = ssd_scan_saving(*ins, chunk=chunk)
+
+    def kern():
+        return sbw.ssd_scan_bwd(dy, *ins, y, saved, chunk=chunk)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          f"ssd_scan_bwd at {key}: two runs differ")
+    want = sbw.plain(dy, *ins, chunk=chunk)
+    errs = {}
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd"), got, want):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        errs[name] = (err, scale)
+        check(bool(torch.isfinite(g).all()) and err <= BWD_F32_MAX * scale,
+              f"ssd_scan_bwd {name} at {key}: max abs {err:.3e} (max |ref| "
+              f"{scale:.3e})")
+    del got, again, want
+    flops, nbytes = ssd_bwd_work(key)
+    bms, bby = bound_ms(flops, nbytes, peaks)
+    by_kernel = traced_kernels_ms(kern, SSD_BWD_NAMES, 7)
+    # the kernel with the most registers a thread, by ptxas (None when the
+    # library was built before this process)
+    usage = {SSD_BWD_NAMES.search(entry).group(0): u
+             for entry, u in ptxas_usage(_build.BUILD_LOG.get(
+                 "ssd_scan_bwd", {}).get("log", "")).items()}
+    largest = max(usage, key=lambda k_: usage[k_][0], default=None)
+    regs = usage.get(largest, (None, None, None))
+    r = {"ms": call_ms(kern, n=5),
+         "plain_ms": call_ms(lambda: sbw.plain(dy, *ins, chunk=chunk), n=3),
+         "library_ms": None, "library_device_ms": None,
+         "device_ms": device_ms(kern, n=5, rounds=3), "bound_ms": bms,
+         "bound_by": bby, "max_abs_err": max(e[0] for e in errs.values()),
+         "rel_err": {n_: e[0] / e[1] for n_, e in errs.items()},
+         "kernels_ms": dict(by_kernel), "largest": largest,
+         "registers": regs[0],
+         "spill_bytes": None if regs[0] is None else regs[1] + regs[2]}
+    log(f"[train-ssd-bwd] {key} (chunk {chunk} asked"
+        + (", dt a of both signs in a chunk" if swing else "") + "): "
+        + ", ".join(f"{n_} max abs {e[0]:.3e} of max |ref| {e[1]:.3e}"
+                    for n_, e in errs.items())
+        + f" (bound {BWD_F32_MAX} max|ref|); two runs bit-equal; one call "
+        f"{r['ms']:.3f} ms, device {r['device_ms']:.3f} ms "
+        f"({flops / r['device_ms'] / 1e9:.1f} TFLOP/s of the bound's work, "
+        f"{bms / r['device_ms']:.2%} of the {bms:.4f} ms bound, {bby}, "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); plain (autograd "
+        f"of the passes) {r['plain_ms']:.3f} ms; library none; one call's "
+        f"kernels by the profiler: " + (", ".join(
+            f"{k} {v:.3f} ms" for k, v in by_kernel.most_common())
+            or "not measured (the trace lost them)")
+        + f"; the kernel with the most registers, {largest}: "
+        f"{r['registers']}, spill bytes {r['spill_bytes']}")
+    return r
+
+
+@contextlib.contextmanager
+def no_plain_ssd():
+    """While open, a call of the SSD scan's plain versions raises: a CUDA
+    training step must not reach them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan_bwd as sbw
+    from repro_torch.models import ssm
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain SSD ran on the train path")
+    with mock.patch.object(ref, "ssd_ref", refuse), \
+            mock.patch.object(ssm, "ssd_chunked", refuse), \
+            mock.patch.object(sbw, "plain", refuse), \
+            mock.patch.object(sbw, "backward_passes", refuse):
+        yield
+
+
 def train_split(prof, wall_s: float) -> tuple:
     """A profiled train step's device time in ms: ``flash_attention``
     forward (its two kernels by name), backward (``dot_rows_kernel``,
-    ``dkdv_kernel``, ``dq_kernel``), ``aten::mm`` (the projections and the
-    head, forward, recompute and backward), the optimizer (the kernels
-    under the ``adamw_update`` range) and the rest; the rest's kernels;
-    the busy total and the idle share of ``wall_s``."""
+    ``dkdv_kernel``, ``dq_kernel``), the ``ssd_scan`` forward (its four
+    kernels) and backward (``SSD_BWD_NAMES``), ``aten::mm`` (the
+    projections and the head, forward, recompute and backward), the
+    optimizer (the kernels under the ``adamw_update`` range) and the rest;
+    the rest's kernels; the busy total and the idle share of ``wall_s``."""
     kernels, ops_ = Counter(), Counter()
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -1746,11 +1953,16 @@ def train_split(prof, wall_s: float) -> tuple:
     bwd = sum(ms_ for k, ms_ in kernels.items()
               if re.search(r"dkdv_kernel|dq_kernel|dot_rows_kernel", k))
     split = {"flash_attention": fwd, "flash_attention_bwd": bwd,
+             "ssd_scan": sum(ms_ for k, ms_ in kernels.items()
+                             if ssd_pass_of(k)),
+             "ssd_scan_bwd": sum(ms_ for k, ms_ in kernels.items()
+                                 if SSD_BWD_NAMES.search(k)),
              "mm": ops_["aten::mm"], "adamw": ops_["adamw_update"]}
     split["rest"] = busy - sum(split.values())
     rest = Counter({k: ms_ for k, ms_ in kernels.items()
                     if "flash" not in k and not MATMUL_NAMES.search(k)
-                    and not re.search(r"dkdv_kernel|dq_kernel|dot_rows", k)})
+                    and not re.search(r"dkdv_kernel|dq_kernel|dot_rows", k)
+                    and not ssd_pass_of(k) and not SSD_BWD_NAMES.search(k)})
     return split, rest, busy, 1 - busy / 1e3 / wall_s
 
 
@@ -1817,9 +2029,10 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     kernel runs bit-equal, and one step with int8 compression; (d)
     Whisper-small at full size, one step of 8 x (1500 frames, 448
     tokens) and one more under the profiler; (e) a checkpoint round trip;
-    (f) one step of the CLI.
-    Returns the launches of (b) and (d) by (kernel, key), the backward's
-    numbers by key and the checks' readings."""
+    (f) one step of the CLI; (g) the SSM family (``mamba_train``, phase
+    9e). Returns the launches of (b), (d) and (g) by (kernel, key), the
+    backwards' numbers by key and the checks' readings (the SSM part's
+    under ``"ssm"``)."""
     import tempfile
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs.base import ShapeConfig
@@ -1903,7 +2116,8 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     del prof
     log(f"[train] {smi}: profiled step: wall {prof_wall:.3f} s (unprofiled "
         f"{min(walls):.3f} s); device time "
-        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in split.items())
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in split.items() if v or k == "rest")
         + f"; busy {busy:.1f} ms, idle {idle:.1%} of the profiled wall "
         f"({1 - busy / 1e3 / min(walls):.1%} of the fastest unprofiled wall)")
     log("[train] the rest by kernel: " + "; ".join(
@@ -2022,7 +2236,7 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     del wprof
     log(f"[train] {ENCDEC} profiled step: wall {wprof_wall:.3f} s; device "
         f"time " + ", ".join(f"{k} {v:.1f} ms ({v / wbusy:.1%})"
-                             for k, v in wsplit.items())
+                             for k, v in wsplit.items() if v or k == "rest")
         + f"; busy {wbusy:.1f} ms, idle {widle:.1%} of the profiled wall")
     out["whisper_wall"] = wwall
     del wparams, wopt, wbundle, wbatch
@@ -2070,7 +2284,184 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     log("[train-cli] python -m repro_torch.launch.train --smoke --steps 2 "
         "--batch 8 --seq 128 on the card: " + " | ".join(lines))
     out["readings"] = readings
+
+    # (g) the SSM family: Mamba-2-130M
+    ssm_out = mamba_train(dev, env, smi, peaks, opt_cfg)
+    out["shapes"] += ssm_out.pop("shapes")
+    out["measured"].update(ssm_out.pop("measured"))
+    out["ssm"] = ssm_out
     log(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def mamba_train(dev, env, smi: str, peaks, opt_cfg) -> dict:
+    """Phase 9e, the SSM family's training on the card: the ``ssd_scan``
+    backward at each of ``SSD_BWD_CASES`` against autograd of its plain
+    version; Mamba-2-130M at full width and all 24 layers, three steps of
+    8 x 4096 in 4 microbatches with remat through ``make_step_bundle``
+    (192 forward and 96 backward ``ssd_scan`` launches a step, no plain
+    SSD) and one more under the profiler; 2 layers at full width, 2 x
+    512: the step through the kernels against it through the plain
+    versions over ``CHECK_SEEDS`` and two kernel steps from one state
+    bit-equal; one step of the CLI. Returns the launches by (kernel, key),
+    the backward's numbers by key, the step walls, the profiled split and
+    the checks' readings."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import init_opt_state
+
+    t_phase = time.perf_counter()
+    measured = {("ssd_scan_bwd", key): measure_ssd_bwd(key, chunk, swing,
+                                                       peaks)
+                for key, chunk, swing in SSD_BWD_CASES}
+    torch.cuda.empty_cache()
+
+    arch = train_arch(MAMBA, microbatch=TRAIN_MICRO, remat="full")
+    cfg = arch.model
+    bundle = model.make_step_bundle(
+        arch, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), env,
+        opt_cfg=opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # by the phases before this one
+    gen = torch.Generator(device=dev).manual_seed(MAMBA_TRAIN_SEED)
+    params = shd.init_params(bundle.arg_specs[0], gen, dev)
+    opt = init_opt_state(params, opt_cfg)
+    n_params = shd.param_count(bundle.arg_specs[0])
+    key = ssd_key(cfg, TRAIN_MICRO, TRAIN_SEQ)[1]
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    per_step = Counter({("ssd_scan", key): 2 * cfg.num_layers * micro,
+                        ("ssd_scan_bwd", key): cfg.num_layers * micro})
+    batches = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MAMBA_TRAIN_SEED, dev,
+                         TRAIN_STEPS + 1)
+    shapes, walls, metrics = Counter(), [], []
+    with no_plain_ssd():
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, m = bundle.fn(params, opt, batches[step])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = counted()
+            check(got == per_step, f"{MAMBA} train step {step} launched "
+                  f"{dict(got)}, expected {dict(per_step)}")
+            shapes += got
+            metrics.append({k: v.item() for k, v in m.items()})
+            check(all(math.isfinite(v) for v in metrics[-1].values()),
+                  f"{MAMBA} train step {step}: {metrics[-1]}")
+    mem = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    sc = cfg.ssm
+    log(f"[train-ssm] {smi}: {MAMBA} at full width, all {cfg.num_layers} "
+        f"layers (d_model {cfg.d_model}, {key[2]} heads of {sc.head_dim}, "
+        f"d_state {sc.d_state}, chunk {sc.chunk}, vocab {cfg.vocab}), "
+        f"{n_params / 1e6:.2f}M parameters in bf16 with f32 AdamW moments, "
+        f"from seed {MAMBA_TRAIN_SEED}; {TRAIN_STEPS} steps of {TRAIN_BATCH}"
+        f" x {TRAIN_SEQ} from SyntheticLMStream in {micro} microbatches of "
+        f"{TRAIN_MICRO}, remat full: wall "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; loss "
+        f"{', '.join(f'{m_['loss']:.4f}' for m_ in metrics)}, grad_norm "
+        f"{', '.join(f'{m_['grad_norm']:.4f}' for m_ in metrics)}; launches "
+        f"a step { {f'{kn}{k}': c for (kn, k), c in per_step.items()} } "
+        f"({cfg.num_layers} layers x {micro} microbatches, forward and its "
+        f"remat recompute, one backward), no plain SSD; "
+        f"max_memory_allocated {mem / 1e9:.2f} GB, {(mem - held) / 1e9:.2f} "
+        f"GB above the {held / 1e9:.2f} GB held when the part began")
+    with no_plain_ssd():
+        prof_wall, prof = profiled_step(
+            lambda: bundle.fn(params, opt, batches[TRAIN_STEPS]))
+    split, rest, busy, idle = train_split(prof, prof_wall)
+    del prof
+    log(f"[train-ssm] {smi}: profiled step: wall {prof_wall:.3f} s "
+        f"(unprofiled {min(walls):.3f} s); device time "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in split.items() if v or k == "rest")
+        + f"; busy {busy:.1f} ms, idle {idle:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / min(walls):.1%} of the fastest unprofiled "
+        f"wall)")
+    log("[train-ssm] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.1f} ms" for k, v in rest.most_common(8)))
+    out = {"shapes": shapes, "measured": measured, "walls": walls,
+           "split": split, "idle": idle, "peak_bytes": mem - held}
+    del params, opt, batches, bundle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 2 layers at full width, 2 x 512: the kernels against the plain
+    # versions (ops.ssd's: the sequential recurrence, differentiated by
+    # autograd), then two kernel steps from one state
+    arch2 = train_arch(MAMBA, CHECK_LAYERS, microbatch=CHECK_BATCH,
+                       remat="full")
+    cfg2 = arch2.model
+    loss_fn = trainer.model_loss_fn(cfg2, arch2.run_config("train"), env)
+    specs2 = model.param_specs(cfg2)
+    readings = []
+    for seed in CHECK_SEEDS:
+        g2 = torch.Generator(device=dev).manual_seed(seed)
+        p2 = shd.init_params(specs2, g2, dev)
+        b2 = lm_batches(cfg2, CHECK_BATCH, CHECK_SEQ, seed, dev, 1)[0]
+        with no_plain_ssd():
+            (lk, _), gk = trainer.value_and_grad(loss_fn, p2, b2)
+        with mock.patch.object(ops, "ssd", ssd_plain):
+            (lp, _), gp = trainer.value_and_grad(loss_fn, p2, b2)
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        worst = max(((a.float() - b_.float()).norm() / b_.float().norm())
+                    .item() for a, b_ in zip(shd.tree_leaves(gk),
+                                             shd.tree_leaves(gp)))
+        readings.append((seed, loss_rel, worst))
+        check(loss_rel <= TRAIN_LOSS_REL, f"{MAMBA} seed {seed}: kernel loss "
+              f"{lk.item()} vs plain {lp.item()}")
+        check(worst <= TRAIN_GRAD_REL_L2, f"{MAMBA} seed {seed}: a gradient "
+              f"leaf {worst:.3e} relative L2 from the plain step's")
+        del p2, gk, gp
+    log(f"[train-ssm-check] {CHECK_LAYERS} layers at full width, "
+        f"{CHECK_BATCH} x {CHECK_SEQ}, bf16: the step's loss and gradients "
+        f"through the kernels vs through ssd_ref on the card: "
+        + "; ".join(f"seed {s_}: loss {lr:.2e} relative, the worst gradient "
+                    f"leaf {w:.3e} relative L2" for s_, lr, w in readings)
+        + f" (bounds {TRAIN_LOSS_REL} and {TRAIN_GRAD_REL_L2}; the worst "
+        f"{max(r_[2] for r_ in readings):.3e})")
+    shape2 = ShapeConfig("train", CHECK_SEQ, CHECK_BATCH, "train")
+    bundle2 = model.make_step_bundle(arch2, shape2, env, opt_cfg=opt_cfg)
+    g2 = torch.Generator(device=dev).manual_seed(CHECK_SEEDS[0])
+    base = shd.init_params(specs2, g2, dev)
+    b2 = lm_batches(cfg2, CHECK_BATCH, CHECK_SEQ, CHECK_SEEDS[0], dev, 1)[0]
+    runs = []
+    with no_plain_ssd():
+        for _ in range(2):
+            p2 = shd.tree_map(torch.clone, base)
+            o2 = init_opt_state(p2, opt_cfg)
+            runs.append(bundle2.fn(p2, o2, b2))
+    check(leaves_equal(runs[0][0], runs[1][0])
+          and leaves_equal(runs[0][1], runs[1][1]),
+          f"two {MAMBA} kernel steps from one state differ")
+    log(f"[train-ssm-check] two kernel steps from one state: parameters and "
+        f"moments bit-equal (loss {runs[0][2]['loss'].item():.6f})")
+    del runs, p2, base, bundle2
+    torch.cuda.empty_cache()
+
+    # the CLI: python -m repro_torch.launch.train --arch mamba2-130m --smoke
+    root = Path(__file__).resolve().parent
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", MAMBA,
+         "--smoke", "--steps", "2", "--batch", "8", "--seq", "128",
+         "--log-every", "1"],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and lines and lines[-1].startswith(
+        "final loss"), f"the train CLI for {MAMBA}: rc {cli.returncode}, "
+        f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    log(f"[train-cli] python -m repro_torch.launch.train --arch {MAMBA} "
+        f"--smoke --steps 2 --batch 8 --seq 128 on the card: "
+        + " | ".join(lines))
+    out["readings"] = readings
+    log(f"[train-ssm] the SSM part of phase 9 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3313,16 +3704,17 @@ def main() -> int:
         f"{pass_ms['library_warm_device_ms']:.4f} ms; a plain copy of the "
         f"same bytes cold {pass_ms['copy_cold_device_ms']:.4f} ms")
 
-    # ---- 9. training: the backward kernel, Yi-6B, Whisper-small ----------
+    # ---- 9. training: the backwards, Yi-6B, Whisper-small, Mamba-2 ------
     train_out = train_phase(dev, env, smi, peaks)
     train_shapes = train_out["shapes"]
     measured.update(train_out["measured"])
     for shape in sorted(train_shapes, key=str):
         # measure() times forward kernels only: every backward key the
-        # path launched must have been measured in phase 9a
-        check(shape[0] != "flash_attention_bwd" or shape in measured,
-              f"flash_attention_bwd launched at {shape[1]}, which phase 9a "
-              f"did not measure (BWD_KEYS)")
+        # path launched must have been measured in phase 9a (9e for the
+        # SSD scan's)
+        check(not shape[0].endswith("_bwd") or shape in measured,
+              f"{shape[0]} launched at {shape[1]}, which phase 9 did not "
+              f"measure (BWD_KEYS, SSD_BWD_CASES)")
         if shape not in measured:
             measure(shape)
 
@@ -3332,7 +3724,7 @@ def main() -> int:
     # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
     # (phase 7c), the Jamba prefill requests (phase 7d), the Whisper-small
     # prefill requests (phase 7e), the pack pass (phase 8), the Yi-6B
-    # train steps and the Whisper-small one (phase 9)
+    # train steps, the Whisper-small one and the Mamba-2-130M ones (phase 9)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
         dense_shapes + moe_shapes + hybrid_shapes + encdec_shapes + \
         pack_shapes + train_shapes
@@ -3391,7 +3783,8 @@ def main() -> int:
         f"{encdec_out['plain_err']:.2e}, decode vs prefill "
         f"{encdec_out['consist_err']:.2e}; Yi-6B (16 layers) train steps "
         f"{', '.join(f'{w:.3f}' for w in train_out['walls'])} s, "
-        f"Whisper-small {train_out['whisper_wall']:.3f} s; "
+        f"Whisper-small {train_out['whisper_wall']:.3f} s, Mamba-2-130M "
+        f"{', '.join(f'{w:.3f}' for w in train_out['ssm']['walls'])} s; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

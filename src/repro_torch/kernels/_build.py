@@ -27,6 +27,7 @@ SOURCES = {"streamed_matmul": "streamed_matmul.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd_scan": "ssd_scan.cu",
+           "ssd_scan_bwd": "ssd_scan_bwd.cu",
            "layout_pack": "layout_pack.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -8,7 +8,7 @@ fallback from one to the other. Each kernel module counts its launches
 Where autograd needs a gradient (grad mode on and an input that requires
 one), ``attention`` on CUDA goes through ``FlashAttention``, whose
 backward is the ``flash_attention_bwd`` kernel, and ``ssd`` through
-``SSDScan``, whose backward raises until its kernel is written. The plain
+``SSDScan``, whose backward is the ``ssd_scan_bwd`` kernel. The plain
 versions on the CPU are differentiated by autograd.
 """
 from __future__ import annotations
@@ -23,12 +23,13 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import layout_pack as _pack
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssdb
 from repro_torch.kernels import streamed_matmul as _mm
 from repro_torch.kernels.layout_pack import native_tile
 
 KERNELS = {"streamed_matmul": _mm, "flash_attention": _fa,
            "flash_attention_bwd": _fab, "ssd_scan": _ssd,
-           "layout_pack": _pack}
+           "ssd_scan_bwd": _ssdb, "layout_pack": _pack}
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -84,9 +85,9 @@ def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
     window, dtype) for ``flash_attention`` and ``flash_attention_bwd``,
-    (B, S, H, P, N, Q) for ``ssd_scan`` and (R, C, tr, tc, dtype) for
-    ``layout_pack``. The dtype
-    keeps an f32 launch apart from a bf16 one of the same shape."""
+    (B, S, H, P, N, Q) for ``ssd_scan`` and ``ssd_scan_bwd`` and (R, C,
+    tr, tc, dtype) for ``layout_pack``. The dtype keeps an f32 launch
+    apart from a bf16 one of the same shape."""
     return {name: Counter(mod.launches) for name, mod in KERNELS.items()}
 
 

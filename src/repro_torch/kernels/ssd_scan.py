@@ -5,11 +5,13 @@ what bounds it and how): a chunk-parallel scan in three passes, chunk
 states, state passing and chunk outputs, four CUDA launches a call.
 ``ssd_scan`` launches them on CUDA tensors in the layouts of the JAX
 kernel, reading ``x`` and ``dt`` through their strides, and counts one
-launch a call. ``plain`` is the sequential recurrence in plain PyTorch,
-which the CPU path of ``ops.ssd`` runs and ``chip_smoke.py`` holds the
-kernel against; ``chunk_states``, ``state_passing`` and ``chunk_outputs``
-state the kernel's three passes in plain PyTorch (``passes`` runs them in
-turn), for the tests and for the per-pass check on the card.
+launch a call. ``SSDScan`` puts it under autograd, with the
+``ssd_scan_bwd`` kernel as its backward. ``plain`` is the sequential
+recurrence in plain PyTorch, which the CPU path of ``ops.ssd`` runs and
+``chip_smoke.py`` holds the kernel against; ``chunk_states``,
+``state_passing`` and ``chunk_outputs`` state the kernel's three passes in
+plain PyTorch (``passes`` runs them in turn), for the tests and for the
+per-pass check on the card.
 """
 from __future__ import annotations
 
@@ -122,10 +124,11 @@ def _lib():
     return lib
 
 
-def _launch(x, dt, a, b, c, d_skip, chunk):
-    """Check, launch, count. Returns y and the f32 workspace the passes
-    filled: L [B,H,nc,Q], S_in [B,H,nc,N,P] (after the state pass) and
-    C B^T transposed [B,nc,Q64,Q64]; None for it when y is empty."""
+def ssd_scan_saving(x, dt, a, b, c, d_skip, *, chunk: int = 256):
+    """``ssd_scan`` (check, launch, count), also returning the f32
+    workspace its passes filled, which the backward reads: (y, (L
+    [B,H,nc,Q], exp(L_Q) [B,H,nc], S_in [B,H,nc,N,P] after the state pass,
+    C B^T transposed [B,nc,Q64,Q64])); None for it when y is empty."""
     ins = (x, dt, a, b, c, d_skip)
     if x.device.type != "cuda" or any(t.device != x.device for t in ins):
         raise ValueError("ssd_scan needs every operand on one CUDA device, "
@@ -174,7 +177,7 @@ def _launch(x, dt, a, b, c, d_skip, chunk):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", err)
     launches[(bsz, s, h, p, n, q)] += 1
-    return y, (lw.view(bsz, h, nc, q), st, g)
+    return y, (lw.view(bsz, h, nc, q), dec, st, g)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -187,7 +190,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (L = cumsum(dt a) is not monotone there), the output pass forms the
     decay exp(L_i - L_j) element by element instead of factoring it.
     Returns y [B,S,H,P] f32, contiguous."""
-    return _launch(x, dt, a, b, c, d_skip, chunk)[0]
+    return ssd_scan_saving(x, dt, a, b, c, d_skip, chunk=chunk)[0]
 
 
 def ssd_scan_with_passes(x, dt, a, b, c, d_skip, *, chunk: int = 256):
@@ -195,35 +198,42 @@ def ssd_scan_with_passes(x, dt, a, b, c, d_skip, *, chunk: int = 256):
     passes left in the workspace, to hold each pass against its plain
     version: y, L [B,H,nc,Q], S_in [B,H,nc,N,P] (after the state pass) and
     C B^T [B,nc,Q,Q] (where j <= i; the rest of the tile is unused)."""
-    y, (lcum, s_in, g) = _launch(x, dt, a, b, c, d_skip, chunk)
+    y, (lcum, _, s_in, g) = ssd_scan_saving(x, dt, a, b, c, d_skip,
+                                            chunk=chunk)
     q = lcum.shape[-1]
     return y, lcum, s_in, g[:, :, :q, :q].transpose(2, 3)
 
 
 class SSDScan(torch.autograd.Function):
-    """The kernel under autograd. Its backward is not written yet, so a
-    gradient through it raises rather than run the plain version on the
-    card; the CPU's ``plain`` keeps its autograd."""
+    """The kernel under autograd: the forward launches ``ssd_scan`` and
+    saves its inputs, its output and its workspace; the backward launches
+    the ``ssd_scan_bwd`` kernel on them (no plain version on the card;
+    the CPU's ``plain`` keeps its autograd)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, d_skip, chunk: int):
-        return ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
+        y, saved = ssd_scan_saving(x, dt, a, b, c, d_skip, chunk=chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b, c, d_skip, y, *(saved or ()))
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet, so the SSM and hybrid "
-            "families do not train on CUDA; see ROADMAP.md §1 (the ssd_scan "
-            "backward is next in the queue)")
+        # an empty y saved no workspace; the backward returns zeros then
+        from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
+        x, dt, a, b, c, d_skip, y, *saved = ctx.saved_tensors
+        return (*ssd_scan_bwd(dy, x, dt, a, b, c, d_skip, y, saved,
+                              chunk=ctx.chunk), None)
 
 
 def ssd_scan_with_grad(x, dt, a, b, c, d_skip, *, chunk: int = 256):
-    """``ssd_scan`` under autograd: the forward launches the kernel, a
-    backward raises ``NotImplementedError``."""
+    """``ssd_scan`` under autograd: the forward and the backward each
+    launch their kernel."""
     return SSDScan.apply(x, dt, a, b, c, d_skip, int(chunk))
 
 
-__all__ = ["ssd_scan", "ssd_scan_with_passes", "ssd_scan_with_grad",
+__all__ = ["ssd_scan", "ssd_scan_with_passes", "ssd_scan_saving",
+           "ssd_scan_with_grad",
            "SSDScan", "plain", "chunk_len",
            "chunk_states", "state_passing", "chunk_outputs", "passes",
            "MAX_P", "MAX_N", "MAX_Q"]

@@ -126,8 +126,10 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
         if cfg.moe is not None or cfg.family in ("moe", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: training an MoE block (family {cfg.family!r}) "
-                f"is not ported yet: its expert products write with "
-                f"torch.bmm(..., out=), which autograd does not take; see "
+                f"is not ported yet, so the MoE and hybrid families do not "
+                f"train: the expert products write with "
+                f"torch.bmm(..., out=), which autograd does not take (the "
+                f"Mamba-2 layers' ssd_scan backward is ported); see "
                 f"ROADMAP.md §1 (MoE training)")
         opt_cfg = opt_cfg or OptConfig(moment_dtype=run.opt_moment_dtype)
         step = make_train_step(cfg, run, env, opt_cfg)

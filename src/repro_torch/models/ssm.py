@@ -7,9 +7,11 @@ decode step rounds the stored f32 conv history to the input's dtype, and
 ``y`` is rounded back to the input's dtype before the out-projection.
 
 On a CUDA tensor ``apply_ssm`` takes ``y`` from the hand-written
-``ssd_scan`` kernel (``kernels.ops.ssd``); on a CPU tensor it runs
-``ssd_chunked``, what the JAX ``apply_ssm`` runs. ``decode_ssm`` is the
-one-step recurrence and launches no kernel.
+``ssd_scan`` kernel (``kernels.ops.ssd``), and under autograd its gradient
+from the hand-written ``ssd_scan_bwd`` kernel; on a CPU tensor it runs
+``ssd_chunked``, what the JAX ``apply_ssm`` runs, and autograd
+differentiates it. ``decode_ssm`` is the one-step recurrence and launches
+no kernel.
 
 Layout (mamba2): in_proj -> [z, x, B, C, dt]; causal depthwise conv over
 (x,B,C); SSD over heads H = d_inner/head_dim; gated RMSNorm; out_proj.

@@ -8,7 +8,8 @@ parameter's dtype as there; its ``lax.scan`` over the microbatches is a
 loop that adds each microbatch's gradients into ``grad_accum_dtype``
 accumulators in place, then divides by their number. On the card each
 attention's gradient is the ``flash_attention_bwd`` kernel
-(``kernels.ops.attention``); a CPU run differentiates the plain
+(``kernels.ops.attention``) and each SSD scan's the ``ssd_scan_bwd``
+kernel (``kernels.ops.ssd``); a CPU run differentiates the plain
 versions.
 """
 from __future__ import annotations

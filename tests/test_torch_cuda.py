@@ -186,12 +186,13 @@ def test_dispatch_launches_and_counts(dev):
     assert ops.launch_counts() == {"streamed_matmul": 1,
                                    "flash_attention": 1,
                                    "flash_attention_bwd": 0, "ssd_scan": 0,
-                                   "layout_pack": 0}
+                                   "ssd_scan_bwd": 0, "layout_pack": 0}
     assert ops.launch_counts_by_shape() == {
         "streamed_matmul": {(64, 128, 64): 1},
         "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0, torch.float32):
                             1},
-        "flash_attention_bwd": {}, "ssd_scan": {}, "layout_pack": {}}
+        "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {},
+        "layout_pack": {}}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -1054,13 +1055,83 @@ def test_attention_with_grad_launches_both_kernels(dev):
     assert ops.launch_counts()["flash_attention"] == 2
 
 
-def test_ssd_scan_gradient_raises_on_the_card(dev):
+# (b, s, h, p, n, chunk): a length whose chunk halves (96 % 64 -> 32), the
+# Mamba-2 head shape, heads that are no multiple of 4 with a chunk of 128,
+# and Jamba's head shape (d_state 16)
+SSD_BWD_SHAPES = [(2, 96, 4, 16, 8, 64), (1, 512, 3, 64, 128, 256),
+                  (1, 256, 25, 64, 128, 128), (1, 512, 8, 64, 16, 256)]
+
+
+def _ssd_bwd_inputs(rng, b, s, h, p, n, chunk, swing, dev):
+    """dy and the SSD operands as the model hands them over: x, b and c
+    slices of one conv output, dt a transposed view. With ``swing``, dt a
+    of heads 0 and 1 takes both signs in batch row 0's first chunk: L
+    rises 12 nats over its first quarter and falls 12 over the next
+    eighth."""
+    from repro_torch.kernels.ssd_scan import chunk_len
+    xbc = _normal(rng, (b, s, h * p + 2 * n)).to(dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(_normal(rng, (b, h, s))).to(dev)
+    a = -torch.exp(_normal(rng, (h,), 0.5)).to(dev)
+    if swing:
+        q = chunk_len(s, chunk)
+        up, down = q // 4, q // 8
+        a[:2] = -1.0
+        dt[0, :2, :q] = 0.05
+        dt[0, :2, :up], dt[0, :2, up:up + down] = -12.0 / up, 12.0 / down
+    dy = _normal(rng, (b, s, h, p)).to(dev)
+    return dy, x, dt.transpose(1, 2), a, bb, cc, _normal(rng, (h,)).to(dev)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("swing", [False, True], ids=["monotone", "swing"])
+def test_ssd_scan_bwd_kernel(dev, b, s, h, p, n, chunk, swing):
+    """The six gradients against autograd of the plain passes on the same
+    inputs (the order of f32 sums only: each within 1e-4 of its largest
+    element), x, b, c and dt read as strided views; two runs bit-equal;
+    the contiguous inputs give the same gradients bit for bit."""
+    from repro_torch.kernels import ssd_scan_bwd as sbw
+    from repro_torch.kernels.ssd_scan import ssd_scan_saving
+    rng = np.random.default_rng(s + h + n)
+    dy, *ins = _ssd_bwd_inputs(rng, b, s, h, p, n, chunk, swing, dev)
+    y, saved = ssd_scan_saving(*ins, chunk=chunk)
+    got = sbw.ssd_scan_bwd(dy, *ins, y, saved, chunk=chunk)
+    again = sbw.ssd_scan_bwd(dy, *ins, y, saved, chunk=chunk)
+    flat = [t.contiguous() for t in ins]
+    y2, saved2 = ssd_scan_saving(*flat, chunk=chunk)
+    dense = sbw.ssd_scan_bwd(dy, *flat, y2, saved2, chunk=chunk)
+    want = sbw.plain(dy, *ins, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, g2, g3, w, t in zip(got, again, dense, want, ins):
+        assert g.shape == t.shape and g.is_contiguous()
+        assert torch.equal(g, g2) and torch.equal(g, g3)
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+def test_ssd_gradient_launches_both_kernels(dev):
+    """``ops.ssd`` under grad on CUDA: one forward and one backward launch
+    by the forward's key, and the leaves' gradients of the plain
+    version; without grad, the forward alone."""
+    from repro_torch.kernels import ssd_scan_bwd as sbw
     rng = np.random.default_rng(2)
-    x, dt, a, b, c, d = _ssd_inputs(rng, 1, 64, 2, 16, 8, dev)
-    x.requires_grad_()
-    y = ops.ssd(x, dt, a, b, c, d, chunk=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
+    dy, *ins = _ssd_bwd_inputs(rng, 1, 64, 2, 16, 8, 32, False, dev)
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    y = ops.ssd(*leaves, chunk=32)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    key = (1, 64, 2, 16, 8, 32)
+    assert ops.launch_counts_by_shape()["ssd_scan"] == {key: 1}
+    assert ops.launch_counts_by_shape()["ssd_scan_bwd"] == {key: 1}
+    for leaf, w in zip(leaves, sbw.plain(dy, *ins, chunk=32)):
+        torch.testing.assert_close(leaf.grad, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+    with torch.no_grad():
+        ops.ssd(*leaves, chunk=32)
+    assert ops.launch_counts()["ssd_scan"] == 2
+    assert ops.launch_counts()["ssd_scan_bwd"] == 1
 
 
 def _tiny_train(name, dev, remat="full", f32=False):
@@ -1132,10 +1203,19 @@ def test_train_step_on_the_card_matches_the_plain_versions(dev):
                                atol=0)
 
 
-def test_train_bundles_of_moe_and_hybrid_raise_and_ssm_raises_in_backward(
+def test_train_bundles_of_moe_and_hybrid_raise_and_ssm_matches_the_plain(
         dev):
+    """The MoE and hybrid train bundles raise (ROADMAP.md §1); a reduced
+    Mamba-2 step in f32 through the kernels (each layer of each of 2
+    microbatches: two forward launches under remat, one backward) against
+    the same step with ``ops.ssd`` through its plain version on the card:
+    losses within 1e-5 relative, gradient norms within 1e-4, and two
+    kernel runs bit-equal."""
+    import contextlib
+    from unittest import mock
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model
     env = make_host_mesh(device=dev)
@@ -1145,6 +1225,23 @@ def test_train_bundles_of_moe_and_hybrid_raise_and_ssm_raises_in_backward(
         arch = replace(arch, model=arch.model.reduced())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.make_step_bundle(arch, shape, env)
-    bundle, params, opt, batch = _tiny_train("mamba2-130m", dev, "none")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.fn(params, opt, batch)
+    runs = []
+    for plain in (False, False, True):
+        bundle, params, opt, batch = _tiny_train("mamba2-130m", dev, f32=True)
+        ops.reset_launch_counts()
+        ctx = mock.patch.object(ops, "ssd", lambda *a, chunk: ref.ssd_ref(
+            *a)) if plain else contextlib.nullcontext()
+        with ctx:
+            params, opt, m = bundle.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        runs.append((m, shd.tree_leaves(params), ops.launch_counts()))
+    (m1, p1, c1), (m2, p2, _), (m3, _, c3) = runs
+    n = bundle.arg_specs[0]["blocks"]["ssm"]["a_log"].shape[0] * 2
+    assert c1["ssd_scan"] == 2 * n and c1["ssd_scan_bwd"] == n
+    assert c3["ssd_scan"] == 0 and c3["ssd_scan_bwd"] == 0
+    assert torch.isfinite(m1["loss"]) and torch.isfinite(m1["grad_norm"])
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+    torch.testing.assert_close(m1["loss"], m3["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m1["grad_norm"], m3["grad_norm"], rtol=1e-4,
+                               atol=0)

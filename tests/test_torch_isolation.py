@@ -98,7 +98,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                atol=0, rtol=0)
     assert torch.equal(ops.pack(a[None]), ref.layout_pack_ref(a[None]))
     names = ("streamed_matmul", "flash_attention", "flash_attention_bwd",
-             "ssd_scan", "layout_pack")
+             "ssd_scan", "ssd_scan_bwd", "layout_pack")
     assert ops.launch_counts() == {n: 0 for n in names}
     assert ops.launch_counts_by_shape() == {n: {} for n in names}
 
@@ -121,6 +121,9 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     h = torch.zeros(1)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(q, q[..., 0], h, q[:, :, 0], q[:, :, 0], h)
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd(q, q, q[..., 0], h, q[:, :, 0], q[:, :, 0], h, q, None)
     with pytest.raises(ValueError, match="CUDA"):
         layout_pack(a)
 

@@ -151,6 +151,62 @@ def test_ssd_passes_match_jax_chunked_pallas_and_reference(b, s, h, p, n,
         *map(jnp.asarray, ins))), atol=2e-3, rtol=1e-3)
 
 
+def _ssd_grad_inputs(b, s, h, p, n, chunk, swing):
+    """The SSD operands of the test above and a cotangent dy. With
+    ``swing``, dt a of heads 0 and 1 takes both signs in batch row 0's
+    first chunk: L rises 6 nats over its first quarter and falls 6 over
+    the next eighth."""
+    rng = np.random.default_rng(s * 3 + h)
+    ins = [_normal(rng, (b, s, h, p)),
+           np.log1p(np.exp(_normal(rng, (b, s, h)))).astype(np.float32),
+           -np.exp(_normal(rng, (h,)) * 0.5).astype(np.float32),
+           _normal(rng, (b, s, n)), _normal(rng, (b, s, n)),
+           _normal(rng, (h,))]
+    if swing:
+        up, down = chunk // 4, chunk // 8
+        ins[2][:2] = -1.0
+        ins[1][0, :chunk, :2] = 0.05
+        ins[1][0, :up, :2] = -6.0 / up
+        ins[1][0, up:up + down, :2] = 6.0 / down
+    return ins, _normal(rng, (b, s, h, p))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,swing",
+                         [(*shape, False) for shape in SSD_SHAPES]
+                         + [(1, 128, 3, 16, 8, 64, True)])
+def test_ssd_gradient_matches_jax_vjp_of_chunked_and_reference(
+        b, s, h, p, n, chunk, swing):
+    """dx, ddt, da, db, dc and dd of y given dy, by the CUDA backward's
+    decomposition in plain PyTorch (``ssd_scan_bwd.backward_passes``) and
+    by autograd of the forward's passes (``ssd_scan_bwd.plain``, what the
+    kernel is held to on the card), against ``jax.vjp`` of the JAX
+    package's ``ssd_chunked`` (the cotangent on y only: f32 summation
+    order, each gradient within 1e-4 of its largest element; readings up
+    to 4.1e-5, da, a sum over batch and steps) and of its sequential
+    ``ssd_ref`` (the chunked-versus-sequential tolerance of
+    tests/test_kernels.py, atol 2e-3 and rtol 1e-3). The last case has dt
+    a of both signs in a chunk."""
+    import jax
+    from repro.models.ssm import ssd_chunked as jax_chunked
+    from repro_torch.kernels import ssd_scan_bwd as sbw
+    ins, dy = _ssd_grad_inputs(b, s, h, p, n, chunk, swing)
+    _, vjp = jax.vjp(lambda *a: jax_chunked(*a, chunk)[0],
+                     *map(jnp.asarray, ins))
+    chunked = vjp(jnp.asarray(dy))
+    _, vjp = jax.vjp(jax_ref.ssd_ref, *map(jnp.asarray, ins))
+    sequential = vjp(jnp.asarray(dy))
+    tins, tdy = list(map(torch.from_numpy, ins)), torch.from_numpy(dy)
+    for got in (sbw.backward_passes(tdy, *tins, chunk=chunk),
+                sbw.plain(tdy, *tins, chunk=chunk)):
+        for g, t, want, seq in zip(got, tins, chunked, sequential):
+            assert g.dtype == torch.float32 and g.shape == t.shape
+            want = _f32(want)
+            np.testing.assert_allclose(_f32(g), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max())
+            np.testing.assert_allclose(_f32(g), _f32(seq), atol=2e-3,
+                                       rtol=1e-3)
+
+
 def _tc_attention_emulation(q, k, v, causal, window, bq=64, bkv=64):
     """The arithmetic of the bf16 tensor-core ``flash_attention`` kernel,
     written out in PyTorch: for each warpgroup's 64 query rows, the visible

@@ -40,6 +40,22 @@ def test_training_converges_and_resumes():
         assert np.mean(l2) < l1[0]   # loss improved vs start
 
 
+def test_ssm_training_converges_and_resumes(capsys):
+    """The SSM family through the CLI at the dense test's settings above:
+    Mamba-2's loss falls, and a resumed run starts at the checkpoint's
+    step (on the card the same run goes through the ``ssd_scan`` kernels,
+    forward and backward)."""
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--device", "cpu", "--arch", "mamba2-130m", "--smoke",
+                "--batch", "8", "--seq", "32", "--ckpt-dir", d,
+                "--log-every", "100"]
+        l1 = train.main([*args, "--steps", "12", "--ckpt-every", "6"])
+        l2 = train.main([*args, "--steps", "18", "--resume"])
+    assert len(l2) == 6                      # resumed at step 12
+    assert all(np.isfinite(l1 + l2)) and np.mean(l2) < l1[0]
+    assert "resumed from step 12" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("arch", DENSE_AND_SSM)
 def test_every_dense_and_ssm_arch_trains(arch, capsys):
     losses = _cli("--arch", arch, "--steps", "4", "--log-every", "1")

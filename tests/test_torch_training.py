@@ -17,7 +17,7 @@ gradient leaf within a relative L2 of ``GRAD_REL_L2`` (readings up to
 6.1e-6 at these sizes). With the real bf16 parameters the frameworks round
 bf16 products apart (``tests/test_torch_dense.py``): the loss within 1e-2
 relative (readings up to 3.8e-4), each gradient leaf within
-``BF16_GRAD_REL_L2`` (readings up to 2.2e-2). A leaf whose gradient is
+``BF16_GRAD_REL_L2`` (readings up to 2.2e-2; Mamba-2's 1.9e-4 and 1.7e-2). A leaf whose gradient is
 zero but for rounding (the key bias of attention without rotary
 positions: softmax ignores a shift shared by a row's scores) is held to
 an absolute floor of ``GRAD_FLOOR`` (f32) or ``BF16_GRAD_FLOOR`` (bf16)
@@ -27,10 +27,11 @@ times the largest leaf's gradient norm instead (readings 1.5e-9 and
 The train step against ``make_train_step`` from one state carried across
 by ``params_from_numpy``, 3 steps at microbatch 1 and 2 (bf16 parameters):
 losses and grad norms within 1e-2 relative (readings up to 9.3e-4 and
-1.7e-3); Adam's first steps move each element by about lr sign(g), so an
-element whose gradient is near zero may step the other way. At least
-``PARAM_AGREE`` of the bf16 parameters must agree within one bf16 ulp
-(readings 0.968 for Yi-6B, 0.998 for Whisper-small).
+1.7e-3, Mamba-2's up to 2.2e-3); Adam's first steps move each element by
+about lr sign(g), so an element whose gradient is near zero may step the
+other way. At least ``PARAM_AGREE`` of the bf16 parameters must agree
+within one bf16 ulp (readings 0.968 for Yi-6B, 0.998 for Whisper-small,
+0.962 for Mamba-2).
 """
 import dataclasses
 import functools
@@ -419,7 +420,7 @@ def test_loss_and_grads_match_jax_in_f32(name):
     _grads_close(tg, jg, GRAD_REL_L2, GRAD_FLOOR)
 
 
-@pytest.mark.parametrize("name", ["yi-6b", "whisper-small"])
+@pytest.mark.parametrize("name", ["yi-6b", "whisper-small", "mamba2-130m"])
 def test_loss_and_grads_match_jax_in_bf16(name):
     (jl, _, jg), (tl, _, tg) = _loss_and_grads(name, 1, f32=False)
     np.testing.assert_allclose(tl, jl, rtol=1e-2)
@@ -466,7 +467,7 @@ def _train_bundles(name, micro):
 
 
 @pytest.mark.parametrize("micro", [1, 2])
-@pytest.mark.parametrize("name", ["yi-6b", "whisper-small"])
+@pytest.mark.parametrize("name", ["yi-6b", "whisper-small", "mamba2-130m"])
 def test_train_step_matches_jax_for_three_steps(name, micro):
     cfg, jb, tb = _train_bundles(name, micro)
     assert tb.donate == (0, 1)
