@@ -100,7 +100,10 @@ call's ``library_device_ms``) is device time per call: CUDA events around
 device's work on the one before, the median of 5 rounds. ``bound_ms``
 takes a launch's operations at the peak of their type: f32 on the FMA
 units, bf16 on the tensor cores, where the bf16 ``flash_attention``
-kernel computes (``wgmma``).
+kernel computes (``wgmma``). The ``ssd_scan`` backward's products run on
+the tensor cores as 3xTF32: its ``bound_ms`` is three times their
+operations at the TF32 rate, its ``fma_bound_ms`` the same work on the
+FMA units.
 
 ``ssd_scan`` runs as three passes in four CUDA launches, counted as one
 call; phase 3d holds each pass against its plain statement
@@ -302,8 +305,9 @@ SSD_BWD_CASES = (((2, 4096, 24, 64, 128, 256), 256, False),
                  ((2, 4096, 128, 64, 16, 256), 256, False),
                  ((1, 512, 8, 64, 32, 256), 256, True),
                  ((2, 96, 4, 16, 8, 32), 64, False))
-# profiler names of the ssd_scan backward's seven kernels
-SSD_BWD_NAMES = re.compile(r"bwd_(?:dstate|pass|dx|dg|dbc|dl|sums)_kernel")
+# profiler names of the ssd_scan backward's nine kernels
+SSD_BWD_NAMES = re.compile(
+    r"bwd_(?:dstate|pass|dx|dg|hsum|gsum|dbc|dl|sums)_kernel")
 # a bf16 flash_attention output against its plain version: both round an
 # f32 result to bf16, so an element may be one bf16 ulp apart (rtol 2^-7)
 # above a floor for outputs near zero; the rounding alone gives a relative
@@ -762,6 +766,44 @@ def log_own_residency(tag: str, engine, runs) -> None:
             f"{mb(r['own'] + r['transient'] + r['inflight'])} MB; other "
             f"models' pool {mb(r['other'])} MB (pinned "
             f"{mb(r['other_pinned'])})")
+
+
+@contextlib.contextmanager
+def plan_logged(tag: str):
+    """While open, each engine logs the plan it made, before any request
+    runs: the HWSpec it planned with, whether the plan fits its budget,
+    the FLOP for each streamed byte (peak_flops / stream_bw: past about
+    880 the loads no longer hide behind compute and the plan of phase 5's
+    pair does not fit, tests/test_torch_plan_fit.py) and the peaks."""
+    from repro_torch.serving.engine import ServingEngine
+    plan = ServingEngine._ensure_planned
+
+    def logged(engine):
+        first = not engine._planned
+        plan(engine)
+        if first and engine.multi_plan is not None:
+            mp = engine.multi_plan
+            log(f"[{tag}] planned with {engine.hw} before the requests: "
+                f"fits_budget {mp.fits_budget()}, "
+                f"{engine.hw.peak_flops / engine.hw.stream_bw:.1f} FLOP a "
+                f"streamed byte, peaks "
+                f"{ {n: round(p / 1e6, 1) for n, p in mp.peaks.items()} } MB")
+    with mock.patch.object(ServingEngine, "_ensure_planned", logged):
+        yield
+
+
+def plan_note(engine) -> str:
+    """What an over-budget check's message adds: the exact HWSpec the
+    engine planned with (a case to replan on the CPU, as
+    tests/test_torch_plan_fit.py does), its FLOP a streamed byte, and
+    whether the calibrated plan itself fits the budget."""
+    hw, mp = engine.hw, engine.multi_plan
+    note = (f"; planned with {hw!r}, {hw.peak_flops / hw.stream_bw:.1f} "
+            f"FLOP a streamed byte")
+    if mp is None or mp.fits_budget():
+        return note + ": the plan fits the budget"
+    return (note + f": the calibrated plan itself does not fit the budget "
+            f"(fits_budget False: planned peak {mp.global_peak()})")
 
 
 def log_over_budget(tag: str, engine, budget: int, rejected) -> None:
@@ -1781,6 +1823,16 @@ def ssd_bwd_work(key) -> tuple:
                          + b * h * nc * n * p + g_tiles)
 
 
+def ssd_bwd_tc_bound_ms(flops: float, nbytes: float, peaks):
+    """The least time of ``ssd_bwd_work``'s work as the kernel does its
+    products, 3xTF32: (ms, what bounds it), three times the operations at
+    the TF32 tensor-core rate (half the bf16 one), or the bytes, whichever
+    takes longer."""
+    t_ops, t_bytes = 3 * flops / (peaks[2] / 2), nbytes / peaks[1]
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def traced_kernels_ms(fn, names, expect: int) -> Counter:
     """Device time in ms of one call of ``fn`` by kernel name (the match of
     ``names``), by the profiler, traced as ``kernel_device_ms`` traces: a
@@ -1850,10 +1902,12 @@ def measure_ssd_bwd(key, chunk: int, swing: bool, peaks) -> dict:
     finite and each within ``BWD_F32_MAX`` of its largest element, and
     two runs bit-equal. Timed (one call between CUDA events, median of 5;
     device time, events around 5 back-to-back calls, median of 3 rounds)
-    beside the plain version; its seven kernels' device time by the
-    profiler, and the registers and spills of the one with the most
-    registers. No single PyTorch call computes this gradient: no library
-    time."""
+    beside the plain version, against the 3xTF32 bound its products run
+    under (``ssd_bwd_tc_bound_ms``: ``bound_ms``) and the FMA bound of the
+    same work (``fma_bound_ms``); its nine kernels' device time by the
+    profiler, and each kernel's registers and spill bytes (the largest's
+    in ``registers``). No single PyTorch call computes this gradient: no
+    library time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan_bwd as sbw
     from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan_saving
@@ -1879,24 +1933,33 @@ def measure_ssd_bwd(key, chunk: int, swing: bool, peaks) -> dict:
               f"{scale:.3e})")
     del got, again, want
     flops, nbytes = ssd_bwd_work(key)
-    bms, bby = bound_ms(flops, nbytes, peaks)
-    by_kernel = traced_kernels_ms(kern, SSD_BWD_NAMES, 7)
-    # the kernel with the most registers a thread, by ptxas (None when the
-    # library was built before this process)
-    usage = {SSD_BWD_NAMES.search(entry).group(0): u
-             for entry, u in ptxas_usage(_build.BUILD_LOG.get(
-                 "ssd_scan_bwd", {}).get("log", "")).items()}
+    bms, bby = ssd_bwd_tc_bound_ms(flops, nbytes, peaks)
+    fma_ms, fma_by = bound_ms(flops, nbytes, peaks)
+    by_kernel = traced_kernels_ms(kern, SSD_BWD_NAMES, 9)
+    # each kernel's registers and spill bytes by ptxas, the instance this
+    # key launches (d_state rounded up to 16, 32, 64 or 128) where the
+    # kernel is a template (none when the library was built before this
+    # process)
+    inst = str(next(np_ for np_ in (16, 32, 64, 128) if key[4] <= np_))
+    usage = {}
+    for entry, u in ptxas_usage(_build.BUILD_LOG.get(
+            "ssd_scan_bwd", {}).get("log", "")).items():
+        m = SSD_BWD_NAMES.search(entry)
+        arg = re.search(r"ILi(\d+)E", entry)
+        if m and (arg is None or arg.group(1) == inst):
+            usage[m.group(0)] = (u[0], u[1] + u[2])
     largest = max(usage, key=lambda k_: usage[k_][0], default=None)
-    regs = usage.get(largest, (None, None, None))
+    regs = usage.get(largest, (None, None))
     r = {"ms": call_ms(kern, n=5),
          "plain_ms": call_ms(lambda: sbw.plain(dy, *ins, chunk=chunk), n=3),
          "library_ms": None, "library_device_ms": None,
          "device_ms": device_ms(kern, n=5, rounds=3), "bound_ms": bms,
          "bound_by": bby, "max_abs_err": max(e[0] for e in errs.values()),
          "rel_err": {n_: e[0] / e[1] for n_, e in errs.items()},
-         "kernels_ms": dict(by_kernel), "largest": largest,
-         "registers": regs[0],
-         "spill_bytes": None if regs[0] is None else regs[1] + regs[2]}
+         "fma_bound_ms": fma_ms, "fma_bound_by": fma_by,
+         "kernels_ms": dict(by_kernel),
+         "kernel_registers": usage, "largest": largest,
+         "registers": regs[0], "spill_bytes": regs[1]}
     log(f"[train-ssd-bwd] {key} (chunk {chunk} asked"
         + (", dt a of both signs in a chunk" if swing else "") + "): "
         + ", ".join(f"{n_} max abs {e[0]:.3e} of max |ref| {e[1]:.3e}"
@@ -1904,14 +1967,17 @@ def measure_ssd_bwd(key, chunk: int, swing: bool, peaks) -> dict:
         + f" (bound {BWD_F32_MAX} max|ref|); two runs bit-equal; one call "
         f"{r['ms']:.3f} ms, device {r['device_ms']:.3f} ms "
         f"({flops / r['device_ms'] / 1e9:.1f} TFLOP/s of the bound's work, "
-        f"{bms / r['device_ms']:.2%} of the {bms:.4f} ms bound, {bby}, "
+        f"{bms / r['device_ms']:.2%} of the {bms:.4f} ms 3xTF32 bound, "
+        f"{bby}, {fma_ms / r['device_ms']:.2%} of the {fma_ms:.4f} ms FMA "
+        f"bound, {fma_by}, "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); plain (autograd "
         f"of the passes) {r['plain_ms']:.3f} ms; library none; one call's "
         f"kernels by the profiler: " + (", ".join(
             f"{k} {v:.3f} ms" for k, v in by_kernel.most_common())
             or "not measured (the trace lost them)")
-        + f"; the kernel with the most registers, {largest}: "
-        f"{r['registers']}, spill bytes {r['spill_bytes']}")
+        + "; registers, spill bytes by kernel: " + (", ".join(
+            f"{k} {u[0]}, {u[1]}" for k, u in sorted(usage.items()))
+            or "not read (built before this process)"))
     return r
 
 
@@ -2939,7 +3005,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     with eviction_log() as evicted, rejection_log() as rejected, \
-            residency_at_peak() as own_peaks:
+            residency_at_peak() as own_peaks, plan_logged("serve"):
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     serve_shapes = Counter({(kn, key): c for kn, by_shape in
@@ -2968,7 +3034,8 @@ def main() -> int:
     log_own_residency("serve", engine, own_peaks)
     log_over_budget("serve", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
-          f"pool peak {engine.peak_memory()} > budget {budget}")
+          f"pool peak {engine.peak_memory()} > budget {budget}"
+          + plan_note(engine))
     check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
 
     def log_plan(tag, engine, streamed, evicted):
@@ -3061,7 +3128,8 @@ def main() -> int:
     with mock.patch.object(HWSpec, "cuda_calibrated",
                            staticmethod(previous_rate)), \
             eviction_log() as evicted, rejection_log() as rejected, \
-            residency_at_peak() as own_peaks:
+            residency_at_peak() as own_peaks, \
+            plan_logged("serve-previous-rate"):
         responses, engine = serve.main(argv)
     torch.cuda.synchronize()
     check(engine.hw.peak_flops == PREVIOUS_PEAK_FLOPS,
@@ -3070,7 +3138,8 @@ def main() -> int:
     log_own_residency("serve-previous-rate", engine, own_peaks)
     log_over_budget("serve-previous-rate", engine, budget, rejected)
     check(engine.peak_memory() <= budget,
-          f"pool peak {engine.peak_memory()} > budget {budget}")
+          f"pool peak {engine.peak_memory()} > budget {budget}"
+          + plan_note(engine))
     check(engine.cache.ledger_balanced(), "weight-pool ledger unbalanced")
     log_plan("serve-previous-rate", engine,
              HostToDevice.copied_bytes - copied0, evicted)
@@ -3758,6 +3827,10 @@ def main() -> int:
                                      else v for v in s[1]],
                            "launches": c, **measured[s]}
                           for s, c in sorted(weights.items(), key=str)]})
+        if kn == "ssd_scan_bwd":
+            # bound_ms is the 3xTF32 bound its products run under; the FMA
+            # bound of the same work beside it
+            kernels[-1]["fma_bound_ms"] = mean_of("fma_bound_ms")
         if kn == "layout_pack":
             kernels[-1].update({f: mean_of(f) for f in (
                 "warm_device_ms", "cold_device_ms", "library_warm_device_ms",

@@ -1,8 +1,9 @@
 """ssd_scan_bwd: dx, ddt, da, db, dc and dd of ``ssd_scan`` given dy.
 
-The CUDA source is ``csrc/ssd_scan_bwd.cu`` (seven launches a call, f32
-on the FMA units, no atomics; its header states each term of the
-gradient, what bounds it and how the work is split). It replaces no
+The CUDA source is ``csrc/ssd_scan_bwd.cu`` (nine launches a call, f32
+in and out, the dense products on the tensor cores as 3xTF32, no
+atomics; its header states each term of the gradient, what bounds it and
+how the work is split). It replaces no
 Pallas kernel: the JAX package differentiates ``models/ssm.ssd_chunked``
 with ``jax.value_and_grad``. ``ssd_scan_bwd`` launches it on CUDA tensors
 from what the forward kernel left in its workspace; ``plain`` is autograd
@@ -32,12 +33,34 @@ from repro_torch.kernels.ssd_scan import (MAX_N, MAX_P, MAX_Q, TILE,
                                           chunk_states, passes,
                                           state_passing)
 
-_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + \
+_ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 8 + \
     [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+# the sums over heads (dG and the head terms of dC and dB) run in this
+# many groups of heads at most, each group's part summed in group order
+# (the .cu refuses more)
+GROUPS = 8
 
 # launches since the last reset, by the forward's key (B, S, H, P, N, Q);
-# one call is seven CUDA launches
+# one call is nine CUDA launches
 launches: Counter = Counter()
+
+
+def head_group(h: int) -> int:
+    """Heads of a group: ceil(H / GROUPS), so that the sums over heads run
+    on GROUPS times the blocks at any H (8 groups of 3 heads at Mamba-2's
+    24, of 16 at Jamba's 128; 25 heads make 7 groups of 4)."""
+    return -(-h // GROUPS)
+
+
+def _group_sum(t, hg: int):
+    """t [B,H,...] summed over heads within each group of ``hg`` heads,
+    then the groups' parts in order: the kernel's order of the sum over
+    H."""
+    parts = [t[:, h0:h0 + hg].sum(1) for h0 in range(0, t.shape[1], hg)]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
 
 
 # ---- the plain versions ---------------------------------------------------
@@ -77,9 +100,12 @@ def backward_passes(dy, x, dt, a, b, c, d_skip, *, chunk: int = 256):
        sum_{i>=j} C_i.B_j exp(L_i - L_j) dy_i; dx_j = dt_j v_j + w_j u_j
        + d dy_j, K_j = v_j . x_j and T_j = exp(L_Q - L_j) u_j . x_j (the
        direct dt_j terms of M and of the state update);
-    4. dG_ij = sum_h exp(L_i - L_j) dt_j (dy_i . x_j) over the heads;
-    5. dc_i = sum_h exp(L_i) S_in dy_i + sum_{j<=i} dG_ij B_j and db_j =
-       sum_h w_j dS_c x_j + sum_{i>=j} dG_ij C_i;
+    4. dG_ij = sum_h exp(L_i - L_j) dt_j (dy_i . x_j), summed within
+       each group of ``head_group(H)`` heads, then the groups' parts in
+       order;
+    5. the head terms sum_h exp(L_i) S_in dy_i (of dc) and sum_h w_j dS_c
+       x_j (of db), summed the same way; dc_i = that + sum_{j<=i} dG_ij
+       B_j and db_j = that + sum_{i>=j} dG_ij C_i;
     6. dL_i = dy_i . (y_i - d x_i) - dt_i (K_i + T_i), plus exp(L_Q)
        <S_in, dS_c> + sum_j dt_j T_j at i = Q - 1; d(dt a) is its reverse
        cumsum in the chunk; ddt = a d(dt a) + K + T, da = sum dt d(dt a)
@@ -117,13 +143,16 @@ def backward_passes(dy, x, dt, a, b, c, d_skip, *, chunk: int = 256):
         d_skip[:, None] * dyr
     kc = (v * xr).sum(-1)
     tq = wl * (u * xr).sum(-1)
-    # 4. dG over the heads
+    # 4. dG over the heads, by groups
+    hg = head_group(h)
     pr = torch.einsum("bcihp,bcjhp->bhcij", dyr, xr)
-    dg = (decay_ij * dth[..., None, :] * pr).sum(1)             # [B,nc,i,j]
-    # 5. db and dc
-    dc = torch.einsum("bhci,bcihp,bhcnp->bcin", torch.exp(lcum), dyr, s_in) \
+    dg = _group_sum(decay_ij * dth[..., None, :] * pr, hg)      # [B,nc,i,j]
+    # 5. db and dc: the head terms by groups, then dG against b and c
+    dc = _group_sum(torch.einsum("bhci,bcihp,bhcnp->bhcin", torch.exp(lcum),
+                                 dyr, s_in), hg) \
         + torch.einsum("bcij,bcjn->bcin", dg, br)
-    db = torch.einsum("bcjh,bcjhp,bhcnp->bcjn", wl * dtc, xr, dstate) \
+    db = _group_sum(torch.einsum("bcjh,bcjhp,bhcnp->bhcjn", wl * dtc, xr,
+                                 dstate), hg) \
         + torch.einsum("bcij,bcin->bcjn", dg, cr)
     # 6. dL, its reverse cumsum, and the per-head sums
     dl = (dyr * (yr - d_skip[:, None] * xr)).sum(-1) - dtc * (kc + tq)
@@ -139,6 +168,42 @@ def backward_passes(dy, x, dt, a, b, c, d_skip, *, chunk: int = 256):
 
 
 # ---- the CUDA kernel ------------------------------------------------------
+
+def workspace(bsz, s, h, p, n, q, device):
+    """The kernel's f32 workspace at the forward's key: dS [B,H,nc,N,P],
+    dG [B,nc,Q64,Q64], the groups' parts of dG [B,nc,G,pairs,64,64] (the
+    chunk's causal 64 x 64 tiles) and of the head terms of dc and db
+    [B,nc,2,G,Q64,N], K + T and dL but for its last-row terms [B,H,S],
+    the chunks' parts of da and dd [B,H,nc,2] and the 64-column tiles'
+    parts of sum_j dt_j T_j and dd [B,H,nc,Q64/64,2]. At the Mamba-2
+    training key (2, 4096, 24, 64, 128, 256) 144.2 MB, 109.1 MB of it the
+    group parts (dG's 41.9, dc's and db's 67.1); at Jamba's (2, 4096,
+    128, 64, 16, 256) 84.0 MB, 50.5 MB of it the parts. Held only while
+    one layer's backward runs."""
+    nc, q64 = s // q, -(-q // TILE) * TILE
+    groups = -(-h // head_group(h))
+    tiles = q64 // TILE
+    shapes = ((bsz, h, nc, n, p), (bsz, nc, q64, q64),
+              (bsz, nc, groups, tiles * (tiles + 1) // 2, TILE, TILE),
+              (bsz, nc, 2, groups, q64, n), (bsz, h, s), (bsz, h, s),
+              (bsz, h, nc, 2), (bsz, h, nc, tiles, 2))
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for shape in shapes)
+
+
+def _rows16(t):
+    """``t`` if its last axis has stride 1, its rows start on 16 bytes and
+    hold a multiple of 4 elements (what the kernel's 16-byte copies
+    read), else a contiguous copy padded with zeros to that multiple."""
+    if t.stride(-1) == 1 and t.shape[-1] % 4 == 0 and \
+            t.data_ptr() % 16 == 0 and \
+            all(st % 4 == 0 for st in t.stride()[:-1]):
+        return t
+    cols = -(-t.shape[-1] // 4) * 4
+    out = t.new_zeros((*t.shape[:-1], cols))
+    out[..., :t.shape[-1]] = t
+    return out
+
 
 @functools.lru_cache(maxsize=None)
 def _entry():
@@ -193,19 +258,15 @@ def ssd_scan_bwd(dy, x, dt, a, b, c, d_skip, y, saved, *, chunk: int = 256):
                          f"{tuple(lcum.shape)}, exp(L_Q) {tuple(dec.shape)}, "
                          f"S_in {tuple(s_in.shape)}, C B^T {tuple(g.shape)} "
                          f"is not of chunk {q}")
-    ws = (torch.empty((bsz, h, nc, n, p), **f32),
-          torch.empty((bsz, nc, q64, q64), **f32),
-          torch.empty((bsz, h, s), **f32), torch.empty((bsz, h, s), **f32),
-          torch.empty((bsz, h, nc, 2), **f32))
-    # the last axis of x, b and c is read with stride 1
-    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
-    dy, y, a, d_skip = (t.contiguous() for t in (dy, y, a, d_skip))
+    ws = workspace(bsz, s, h, p, n, q, x.device)
+    x, b, c, dy = (_rows16(t) for t in (x, b, c, dy.contiguous()))
+    y, a, d_skip = (t.contiguous() for t in (y, a, d_skip))
     lcum, dec, s_in, g = (t.contiguous() for t in saved)
     err = _entry()(
         *(t.data_ptr() for t in (x, dt, a, b, c, d_skip, dy, y, lcum, dec,
                                  s_in, g, *grads, *ws)),
-        bsz, s, h, p, n, q, q64, *x.stride()[:3], *dt.stride(),
-        *b.stride()[:2], *c.stride()[:2],
+        bsz, s, h, p, n, q, q64, head_group(h), *x.stride()[:3],
+        *dt.stride(), *b.stride()[:2], *c.stride()[:2],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan_bwd", err)
     launches[(bsz, s, h, p, n, q)] += 1
@@ -213,4 +274,4 @@ def ssd_scan_bwd(dy, x, dt, a, b, c, d_skip, y, saved, *, chunk: int = 256):
 
 
 __all__ = ["ssd_scan_bwd", "plain", "backward_passes",
-           "reverse_state_passing", "launches"]
+           "reverse_state_passing", "head_group", "workspace", "launches"]

@@ -1056,10 +1056,13 @@ def test_attention_with_grad_launches_both_kernels(dev):
 
 
 # (b, s, h, p, n, chunk): a length whose chunk halves (96 % 64 -> 32), the
-# Mamba-2 head shape, heads that are no multiple of 4 with a chunk of 128,
-# and Jamba's head shape (d_state 16)
+# Mamba-2 head shape, heads that are no multiple of 4 with a chunk of 128
+# (25 heads: 6 groups of 4 and one of 1), Jamba's head shape (d_state 16),
+# and the head and state widths of Mamba-2-130M (24 heads: 8 groups of 3)
+# and of Jamba (128 heads: 8 groups of 16) at their chunk
 SSD_BWD_SHAPES = [(2, 96, 4, 16, 8, 64), (1, 512, 3, 64, 128, 256),
-                  (1, 256, 25, 64, 128, 128), (1, 512, 8, 64, 16, 256)]
+                  (1, 256, 25, 64, 128, 128), (1, 512, 8, 64, 16, 256),
+                  (1, 1024, 24, 64, 128, 256), (1, 512, 128, 64, 16, 256)]
 
 
 def _ssd_bwd_inputs(rng, b, s, h, p, n, chunk, swing, dev):

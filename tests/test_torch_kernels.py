@@ -171,9 +171,14 @@ def _ssd_grad_inputs(b, s, h, p, n, chunk, swing):
     return ins, _normal(rng, (b, s, h, p))
 
 
+# the kernel's head groups (ssd_scan_bwd.head_group): 25 heads make 6
+# groups of 4 and one of 1; with d_state 16 and chunks of 96 and 48 (no
+# multiple of the 64-row tile), the last with dt a of both signs
 @pytest.mark.parametrize("b,s,h,p,n,chunk,swing",
                          [(*shape, False) for shape in SSD_SHAPES]
-                         + [(1, 128, 3, 16, 8, 64, True)])
+                         + [(1, 128, 3, 16, 8, 64, True),
+                            (1, 192, 25, 8, 16, 96, False),
+                            (2, 96, 25, 4, 16, 48, True)])
 def test_ssd_gradient_matches_jax_vjp_of_chunked_and_reference(
         b, s, h, p, n, chunk, swing):
     """dx, ddt, da, db, dc and dd of y given dy, by the CUDA backward's
