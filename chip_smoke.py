@@ -83,7 +83,20 @@ executors, then drives each path through the port's own entry points:
   launches a step, no plain SSD) and one more under the profiler; the
   step at 2 layers and 2 x 512 through the kernels against it through the
   plain versions over 4 seeds, two kernel runs bit-equal; and one step of
-  ``python -m repro_torch.launch.train --arch mamba2-130m --smoke``.
+  ``python -m repro_torch.launch.train --arch mamba2-130m --smoke``. Then
+  the MoE and hybrid families (phases 9f and 9g): Qwen3-30B-A3B at full
+  width and 3 of its 48 layers (f32 AdamW moments) and Jamba-v0.1-52B at
+  full width and 2 of its 32 layers (a Mamba-2 layer with a dense MLP, one
+  with 16 experts; bf16 moments as its ``train_4k`` run), random weights
+  drawn on the card layer by layer from a seed, three steps of 8 x 4096
+  tokens in 4 microbatches (remat for Qwen3: 24 forward and 12 backward
+  ``flash_attention`` launches a step at the Yi-6B key; Jamba: 8 and 8
+  ``ssd_scan`` at its key), ``dropped_frac``, ``lb_loss`` and ``z_loss``
+  by layer, one more step under the profiler with the MoE stages
+  forward and backward; the step at 2 layers, 2 x 512 and capacity E / k
+  through the kernels against it through the plain versions over 4
+  seeds with the routes' agreement, two kernel steps bit-equal, and one
+  run of the train CLI with each arch (``--smoke``).
 
 The launch counts are set to 0 just before each path and read just after;
 on the serving and fleet paths they must equal the graphs' counts over
@@ -298,13 +311,45 @@ MAMBA_TRAIN_SEED = 12
 # the same inputs (the order of f32 sums only: each gradient within
 # BWD_F32_MAX of its largest element), at (the forward's key, the chunk
 # asked, dt a of both signs in a chunk): the Mamba-2 training key, Jamba's
-# (timed and checked, launched on no path: the hybrid family does not
-# train yet), a chunk where dt a rises and falls, and a length whose chunk
+# (launched by phase 9g's hybrid train steps, two Mamba-2 layers a
+# microbatch), a chunk where dt a rises and falls, and a length whose chunk
 # halves (96 % 64 -> 32)
 SSD_BWD_CASES = (((2, 4096, 24, 64, 128, 256), 256, False),
                  ((2, 4096, 128, 64, 16, 256), 256, False),
                  ((1, 512, 8, 64, 32, 256), 256, True),
                  ((2, 96, 4, 16, 8, 32), 64, False))
+# phases 9f and 9g, the MoE and hybrid families' training, each with
+# yi6b-train's batches, microbatches and remat and a seed of its own.
+# Qwen3-30B-A3B at full width: each layer 0.62B parameters and the
+# embedding and head 0.62B, 10 GB a layer at 16 B a parameter (bf16
+# weights and gradients, f32 AdamW moments, f32 accumulators); one
+# microbatch's f32 logits are 2 x 4096 x 151936 x 4 B, about 5 GB. 4 of
+# its 48 layers (3.11B parameters) peaked at 68.88 GB alone on an H100
+# 80GB HBM3 at 700 W, but the phases before this one hold 9.59 GB, so
+# the smoke runs 3 (2.49B parameters)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEED = 3, 13
+# Jamba-v0.1-52B at full width and 2 of its 32 layers: layer 0 Mamba-2 with
+# a dense MLP, layer 1 Mamba-2 with a 16-expert top-2 MoE, about 3.74B
+# parameters and 45 GB at 12 B a parameter (its train_4k run keeps bf16
+# moments). The first attention layer is layer 4 (configs/base.py): a cut
+# that reaches it holds two MoE layers, about 7.0B parameters and over 80
+# GB, so the Jamba attention backward key stays off a path
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_SEED = 2, 14
+# the MoE and hybrid steps at CHECK_LAYERS, CHECK_BATCH x CHECK_SEQ and
+# capacity E / k through the kernels against the plain versions over
+# CHECK_SEEDS. Beside the kernels' rounding, a near-tied route can flip
+# between the two runs (phase 7c), and a flip moves its token's gradient
+# by a whole expert's share. On an H100 80GB HBM3 at 700 W Qwen3's routes
+# agreed 96.9-97.8% by slot, the losses within 1.07e-4 relative and the
+# worst gradient leaf (attention's wq or the router) within 4.28e-2
+# relative L2; Jamba's routes 99.4-99.5%, losses within 4.42e-5, the
+# worst leaf (always the router) within 1.135e-1. The bounds are about
+# twice the worst reading
+MOE_TRAIN_LOSS_REL, MOE_TRAIN_GRAD_REL_L2 = 2.5e-4, 0.1
+HYBRID_TRAIN_LOSS_REL, HYBRID_TRAIN_GRAD_REL_L2 = 1e-4, 0.25
+# the profiler's names of the MoE layer's backward (models/moe.py's two
+# autograd Functions and the expert products' bmm)
+MOE_BWD_NODES = ("_DispatchBackward", "_CombineBackward", "BmmBackward0")
 # profiler names of the ssd_scan backward's nine kernels
 SSD_BWD_NAMES = re.compile(
     r"bwd_(?:dstate|pass|dx|dg|hsum|gsum|dbc|dl|sums)_kernel")
@@ -2002,16 +2047,18 @@ def train_split(prof, wall_s: float) -> tuple:
     """A profiled train step's device time in ms: ``flash_attention``
     forward (its two kernels by name), backward (``dot_rows_kernel``,
     ``dkdv_kernel``, ``dq_kernel``), the ``ssd_scan`` forward (its four
-    kernels) and backward (``SSD_BWD_NAMES``), ``aten::mm`` (the
-    projections and the head, forward, recompute and backward), the
-    optimizer (the kernels under the ``adamw_update`` range) and the rest;
-    the rest's kernels; the busy total and the idle share of ``wall_s``."""
+    kernels) and backward (``SSD_BWD_NAMES``), ``aten::bmm`` (the MoE
+    layer's expert products, forward, recompute and backward),
+    ``aten::mm`` (the projections and the head, likewise), the optimizer
+    (the kernels under the ``adamw_update`` range) and the rest; the
+    rest's kernels; the busy total and the idle share of ``wall_s``. The
+    ranges' own spans on the device (no kernels) are left out."""
     kernels, ops_ = Counter(), Counter()
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            if ev.key != "adamw_update":
+            if ev.key != "adamw_update" and ev.key not in MOE_STAGES:
                 kernels[ev.key] += ev.self_device_time_total / 1e3
-        elif ev.key in ("aten::mm", "adamw_update"):
+        elif ev.key in ("aten::bmm", "aten::mm", "adamw_update"):
             ops_[ev.key] += ev.device_time_total / 1e3
     busy = sum(kernels.values())
     fwd = sum(ms_ for k, ms_ in kernels.items()
@@ -2023,7 +2070,8 @@ def train_split(prof, wall_s: float) -> tuple:
                              if ssd_pass_of(k)),
              "ssd_scan_bwd": sum(ms_ for k, ms_ in kernels.items()
                                  if SSD_BWD_NAMES.search(k)),
-             "mm": ops_["aten::mm"], "adamw": ops_["adamw_update"]}
+             "bmm": ops_["aten::bmm"], "mm": ops_["aten::mm"],
+             "adamw": ops_["adamw_update"]}
     split["rest"] = busy - sum(split.values())
     rest = Counter({k: ms_ for k, ms_ in kernels.items()
                     if "flash" not in k and not MATMUL_NAMES.search(k)
@@ -2085,6 +2133,34 @@ def leaves_equal(a, b) -> bool:
                                                  shd.tree_leaves(b)))
 
 
+def train_steps(name: str, bundle, params, opt, batches: list,
+                per_step: Counter, record=contextlib.nullcontext) -> tuple:
+    """TRAIN_STEPS steps of ``bundle`` from ``params`` and ``opt`` over
+    ``batches``, each held to exactly ``per_step`` launches by (kernel,
+    key) and finite metrics, with ``record`` open around each step's
+    call. Returns (params, opt, the launches, the walls in s, each step's
+    metrics, what ``record`` yielded each step)."""
+    from repro_torch.kernels import ops
+    shapes, walls, metrics, records = Counter(), [], [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with record() as rec:
+            t0 = time.perf_counter()
+            params, opt, m = bundle.fn(params, opt, batches[step])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = counted()
+        check(got == per_step, f"{name} train step {step} launched "
+              f"{dict(got)}, expected {dict(per_step)}")
+        shapes += got
+        metrics.append({k: v.item() for k, v in m.items()})
+        check(all(math.isfinite(v) for v in metrics[-1].values()),
+              f"{name} train step {step}: {metrics[-1]}")
+        records.append(rec)
+    return params, opt, shapes, walls, metrics, records
+
+
 def train_phase(dev, env, smi: str, peaks) -> dict:
     """Phase 9: training on the card. (a) the ``flash_attention``
     backward at every key a path runs, plus a window and an f32 case;
@@ -2096,9 +2172,11 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     Whisper-small at full size, one step of 8 x (1500 frames, 448
     tokens) and one more under the profiler; (e) a checkpoint round trip;
     (f) one step of the CLI; (g) the SSM family (``mamba_train``, phase
-    9e). Returns the launches of (b), (d) and (g) by (kernel, key), the
-    backwards' numbers by key and the checks' readings (the SSM part's
-    under ``"ssm"``)."""
+    9e); (h) the MoE and hybrid families (``moe_train``, phases 9f and
+    9g). Returns the launches of (b), (d), (g) and (h) by (kernel, key),
+    the backwards' numbers by key and the checks' readings (the SSM
+    part's under ``"ssm"``, the MoE and hybrid parts' under ``"moe"`` and
+    ``"hybrid"``)."""
     import tempfile
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs.base import ShapeConfig
@@ -2145,22 +2223,9 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
                         * TRAIN_BATCH // TRAIN_MICRO})
     batches = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, dev,
                          TRAIN_STEPS + 1)
-    shapes, walls, metrics = Counter(), [], []
     with no_plain_attention():
-        for step in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            params, opt, m = bundle.fn(params, opt, batches[step])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            got = counted()
-            check(got == per_step, f"train step {step} launched {dict(got)}, "
-                  f"expected {dict(per_step)}")
-            shapes += got
-            metrics.append({k: v.item() for k, v in m.items()})
-            check(all(math.isfinite(v) for v in metrics[-1].values()),
-                  f"train step {step}: {metrics[-1]}")
+        params, opt, shapes, walls, metrics, _ = train_steps(
+            DENSE, bundle, params, opt, batches, per_step)
     mem = torch.cuda.max_memory_allocated()
     total_mem = torch.cuda.get_device_properties(dev).total_memory
     check(mem < total_mem, f"train peak {mem} of {total_mem}")
@@ -2337,18 +2402,8 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     del sp, so, rp, ro, state, sbundle
 
     # (f) the CLI: python -m repro_torch.launch.train --smoke, one step
-    root = Path(__file__).resolve().parent
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--steps", "2", "--batch", "8", "--seq", "128", "--log-every", "1"],
-        capture_output=True, text=True, timeout=600, cwd=root,
-        env={**os.environ, "PYTHONPATH": str(root / "src")})
-    lines = cli.stdout.strip().splitlines()
-    check(cli.returncode == 0 and lines and lines[-1].startswith(
-        "final loss"), f"the train CLI: rc {cli.returncode}, "
-        f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
     log("[train-cli] python -m repro_torch.launch.train --smoke --steps 2 "
-        "--batch 8 --seq 128 on the card: " + " | ".join(lines))
+        "--batch 8 --seq 128 on the card: " + " | ".join(train_cli()))
     out["readings"] = readings
 
     # (g) the SSM family: Mamba-2-130M
@@ -2356,6 +2411,16 @@ def train_phase(dev, env, smi: str, peaks) -> dict:
     out["shapes"] += ssm_out.pop("shapes")
     out["measured"].update(ssm_out.pop("measured"))
     out["ssm"] = ssm_out
+
+    # (h) the MoE and hybrid families: Qwen3-30B-A3B (9f) and Jamba (9g)
+    out["moe"] = moe_train(dev, env, smi, MOE, MOE_TRAIN_LAYERS,
+                           MOE_TRAIN_SEED, "[train-moe]", MOE_TRAIN_LOSS_REL,
+                           MOE_TRAIN_GRAD_REL_L2)
+    out["hybrid"] = moe_train(dev, env, smi, HYBRID, HYBRID_TRAIN_LAYERS,
+                              HYBRID_TRAIN_SEED, "[train-hybrid]",
+                              HYBRID_TRAIN_LOSS_REL, HYBRID_TRAIN_GRAD_REL_L2)
+    for part in ("moe", "hybrid"):
+        out["shapes"] += out[part].pop("shapes")
     log(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2402,22 +2467,9 @@ def mamba_train(dev, env, smi: str, peaks, opt_cfg) -> dict:
                         ("ssd_scan_bwd", key): cfg.num_layers * micro})
     batches = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MAMBA_TRAIN_SEED, dev,
                          TRAIN_STEPS + 1)
-    shapes, walls, metrics = Counter(), [], []
     with no_plain_ssd():
-        for step in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            params, opt, m = bundle.fn(params, opt, batches[step])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            got = counted()
-            check(got == per_step, f"{MAMBA} train step {step} launched "
-                  f"{dict(got)}, expected {dict(per_step)}")
-            shapes += got
-            metrics.append({k: v.item() for k, v in m.items()})
-            check(all(math.isfinite(v) for v in metrics[-1].values()),
-                  f"{MAMBA} train step {step}: {metrics[-1]}")
+        params, opt, shapes, walls, metrics, _ = train_steps(
+            MAMBA, bundle, params, opt, batches, per_step)
     mem = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     sc = cfg.ssm
@@ -2511,24 +2563,273 @@ def mamba_train(dev, env, smi: str, peaks, opt_cfg) -> dict:
     torch.cuda.empty_cache()
 
     # the CLI: python -m repro_torch.launch.train --arch mamba2-130m --smoke
-    root = Path(__file__).resolve().parent
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", MAMBA,
-         "--smoke", "--steps", "2", "--batch", "8", "--seq", "128",
-         "--log-every", "1"],
-        capture_output=True, text=True, timeout=600, cwd=root,
-        env={**os.environ, "PYTHONPATH": str(root / "src")})
-    lines = cli.stdout.strip().splitlines()
-    check(cli.returncode == 0 and lines and lines[-1].startswith(
-        "final loss"), f"the train CLI for {MAMBA}: rc {cli.returncode}, "
-        f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
     log(f"[train-cli] python -m repro_torch.launch.train --arch {MAMBA} "
         f"--smoke --steps 2 --batch 8 --seq 128 on the card: "
-        + " | ".join(lines))
+        + " | ".join(train_cli(MAMBA)))
     out["readings"] = readings
     log(f"[train-ssm] the SSM part of phase 9 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+@contextlib.contextmanager
+def moe_aux_by_layer():
+    """While open, each MoE block's aux (``dropped_frac``, ``lb_loss``,
+    ``z_loss``; device tensors) lands in the dict it yields, a list a
+    layer, the layers in the order of their first call (a recompute under
+    remat repeats its forward's values)."""
+    from repro_torch.models import moe as moe_mod
+    apply = moe_mod.apply_moe
+    by_layer = {}
+
+    def recorded(cfg, p, x, env, **kw):
+        y, aux = apply(cfg, p, x, env, **kw)
+        by_layer.setdefault(p["router"].data_ptr(), []).append(
+            {k: v.detach() for k, v in aux.items()})
+        return y, aux
+    with mock.patch.object(moe_mod, "apply_moe", recorded):
+        yield by_layer
+
+
+def layer_means(by_layer: dict) -> dict:
+    """``moe_aux_by_layer``'s record -> {aux name: [mean a layer]}."""
+    names = next(iter(by_layer.values()))[0]
+    return {k: [torch.stack([a[k] for a in calls]).mean().item()
+                for calls in by_layer.values()] for k in names}
+
+
+def moe_stage_split(prof) -> dict:
+    """The MoE layer's device time in a profiled train step, ms: each
+    stage of ``moe_ranges`` (its forward and its recompute under remat,
+    the expert products included) and each backward of ``MOE_BWD_NODES``
+    (the expert products' ``BmmBackward0`` included)."""
+    out = Counter()
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA and \
+                ev.key in MOE_STAGES + MOE_BWD_NODES:
+            out[ev.key] += ev.device_time_total / 1e3
+    return {k: out[k] for k in MOE_STAGES + MOE_BWD_NODES}
+
+
+def moe_train(dev, env, smi: str, name: str, layers: int, seed: int,
+              tag: str, loss_rel_max: float, grad_rel_max: float) -> dict:
+    """Phases 9f and 9g, the MoE and hybrid families' training on the card:
+    ``name`` at full width and its first ``layers`` layers (bf16, AdamW
+    moments in its ``train_4k`` run's dtype, random weights drawn on the
+    card layer by layer from ``seed``), three steps of 8 x 4096 in 4
+    microbatches with remat (which the hybrid family's unrolled layers do
+    not take) through ``make_step_bundle``, exact ``flash_attention`` and
+    ``ssd_scan`` launches forward and backward and no plain version, and
+    one more under the profiler with the MoE stages in ranges; then at
+    CHECK_LAYERS, CHECK_BATCH x CHECK_SEQ and capacity E / k the step
+    through the kernels against it through the plain versions over
+    CHECK_SEEDS (losses within ``loss_rel_max``, each gradient leaf within
+    ``grad_rel_max`` relative L2, routes' agreement printed), and two
+    kernel steps from one state at the config's capacity bit-equal; two
+    steps of the train CLI (``--smoke``: the reduced config). Returns the
+    launches by (kernel, key), the walls, peak memory, the profiled split
+    and the checks' readings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    t_phase = time.perf_counter()
+    moments = get_arch(name).run_config("train_4k").opt_moment_dtype
+    opt_cfg = OptConfig(warmup=2, total_steps=10, moment_dtype=moments)
+    arch = train_arch(name, layers, microbatch=TRAIN_MICRO, remat="full")
+    cfg, m = arch.model, arch.model.moe
+    hybrid = cfg.family == "hybrid"
+    bundle = model.make_step_bundle(
+        arch, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), env,
+        opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # by the phases before this one
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = draw_by_layer(bundle.arg_specs[0], gen, dev)
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    drawn_s = time.perf_counter() - t0
+    n_params = shd.param_count(bundle.arg_specs[0])
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    passes = 1 if hybrid else 2            # the forward and its recompute
+    kinds = Counter(cfg.layer_kinds())
+    per_step = Counter()
+    for kind, key_of in (("attn", flash_key), ("ssm", ssd_key)):
+        if kinds[kind]:
+            key = key_of(cfg, TRAIN_MICRO, TRAIN_SEQ)
+            per_step[key] = passes * kinds[kind] * micro
+            per_step[(f"{key[0]}_bwd", key[1])] = kinds[kind] * micro
+    batches = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev,
+                         TRAIN_STEPS + 1)
+    with no_plain_attention(), no_plain_ssd():
+        params, opt, shapes, walls, metrics, records = train_steps(
+            name, bundle, params, opt, batches, per_step, moe_aux_by_layer)
+    by_step = [layer_means(r) for r in records]
+    mem = torch.cuda.max_memory_allocated()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    check(mem < total_mem, f"{name} train peak {mem} of {total_mem}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
+    remat_note = "no remat (the hybrid layers are unrolled)" if hybrid \
+        else "remat full"
+    log(f"{tag} {smi}: {name} at full width, {layers} of "
+        f"{get_arch(name).model.num_layers} layers ({dict(kinds)} mixers, "
+        f"{n_moe} with {m.n_experts} experts of width {m.d_ff}, top-"
+        f"{m.top_k}, capacity factor {m.capacity_factor}; d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), {n_params / 1e9:.3f}B "
+        f"parameters in bf16 with {moments} AdamW moments, drawn layer by "
+        f"layer from seed {seed} in {drawn_s:.2f}s; {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} from SyntheticLMStream in {micro} "
+        f"microbatches of {TRAIN_MICRO}, "
+        f"{remat_note}, f32 gradient accumulators: wall "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; loss "
+        f"{', '.join(f'{m_['loss']:.4f}' for m_ in metrics)}, grad_norm "
+        f"{', '.join(f'{m_['grad_norm']:.4f}' for m_ in metrics)}, lb_loss "
+        f"{', '.join(f'{m_['lb_loss']:.4f}' for m_ in metrics)}, z_loss "
+        f"{', '.join(f'{m_['z_loss']:.4f}' for m_ in metrics)} (summed over "
+        f"the MoE layers); launches a step "
+        f"{ {f'{kn}{k}': c for (kn, k), c in per_step.items()} }, no plain "
+        f"attention or SSD; max_memory_allocated {mem / 1e9:.2f} GB, "
+        f"{(mem - held) / 1e9:.2f} GB above the {held / 1e9:.2f} GB held "
+        f"when the phase began, of {total_mem / 1e9:.2f} GB")
+    for step, means in enumerate(by_step):
+        log(f"{tag} step {step} by MoE layer (microbatch mean): "
+            + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                        for k, vs in means.items()))
+    with no_plain_attention(), no_plain_ssd(), moe_ranges():
+        prof_wall, prof = profiled_step(
+            lambda: bundle.fn(params, opt, batches[TRAIN_STEPS]))
+    split, rest, busy, idle = train_split(prof, prof_wall)
+    stages = moe_stage_split(prof)
+    del prof
+    log(f"{tag} {smi}: profiled step: wall {prof_wall:.3f} s (unprofiled "
+        f"{min(walls):.3f} s); device time "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in split.items() if v or k == "rest")
+        + f"; busy {busy:.1f} ms, idle {idle:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / min(walls):.1%} of the fastest unprofiled "
+        f"wall); the MoE stages (forward with its recompute; backward): "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in stages.items()))
+    log(f"{tag} the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.1f} ms" for k, v in rest.most_common(8)))
+    out = {"shapes": shapes, "walls": walls, "split": split,
+           "stages": stages, "idle": idle, "peak_bytes": mem,
+           "metrics": metrics, "by_layer": by_step}
+    del params, opt, batches, bundle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # CHECK_LAYERS at full width, CHECK_BATCH x CHECK_SEQ, capacity E / k:
+    # the step through the kernels against it through the plain versions
+    carch = moe_arch_at_full_capacity(train_arch(
+        name, CHECK_LAYERS, microbatch=CHECK_BATCH, remat="full"))
+    cfg2 = carch.model
+    loss_fn = trainer.model_loss_fn(cfg2, carch.run_config("train"), env)
+    specs2 = model.param_specs(cfg2)
+    readings = []
+    for s in CHECK_SEEDS:
+        g2 = torch.Generator(device=dev).manual_seed(s)
+        p2 = draw_by_layer(specs2, g2, dev)
+        b2 = lm_batches(cfg2, CHECK_BATCH, CHECK_SEQ, s, dev, 1)[0]
+        with moe_recording() as (k_routes, k_drop), no_plain_attention(), \
+                no_plain_ssd():
+            (lk, _), gk = trainer.value_and_grad(loss_fn, p2, b2)
+        with moe_recording() as (p_routes, p_drop), \
+                mock.patch.object(ops, "attention", ref.flash_attention_ref), \
+                mock.patch.object(ops, "ssd", ssd_plain):
+            (lp, _), gp = trainer.value_and_grad(loss_fn, p2, b2)
+        check(float(torch.stack(k_drop + p_drop).max()) == 0.0,
+              f"{name} check at capacity E / k dropped assignments")
+        slots, sets = route_agreement(torch.stack(k_routes),
+                                      torch.stack(p_routes),
+                                      cfg2.moe.n_experts)
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        rel = {path: ((a.float() - b_.float()).norm() / b_.float().norm())
+               .item() for path, a, b_ in zip(
+                   leaf_paths(gk), shd.tree_leaves(gk), shd.tree_leaves(gp))}
+        worst = max(rel, key=rel.get)
+        readings.append((s, loss_rel, rel[worst], worst, slots, sets))
+        check(loss_rel <= loss_rel_max, f"{name} seed {s}: kernel loss "
+              f"{lk.item()} vs plain {lp.item()}")
+        check(rel[worst] <= grad_rel_max, f"{name} seed {s}: gradient leaf "
+              f"{worst} {rel[worst]:.3e} relative L2 from the plain step's")
+        del p2, gk, gp
+    log(f"{tag}-check {CHECK_LAYERS} layers at full width, {CHECK_BATCH} x "
+        f"{CHECK_SEQ}, bf16, capacity factor {cfg2.moe.capacity_factor} "
+        f"(dropped 0): the step's loss and gradients through the kernels vs "
+        f"through their plain versions on the card: "
+        + "; ".join(f"seed {s_}: loss {lr:.2e} relative, the worst gradient "
+                    f"leaf {wp} {w:.3e} relative L2, routes agree {sl:.4%} "
+                    f"by slot, {se:.4%} by chosen expert"
+                    for s_, lr, w, wp, sl, se in readings)
+        + f" (bounds {loss_rel_max} and {grad_rel_max}; the worst "
+        f"{max(r_[2] for r_ in readings):.3e})")
+    arch2 = train_arch(name, CHECK_LAYERS, microbatch=CHECK_BATCH,
+                       remat="full")
+    bundle2 = model.make_step_bundle(
+        arch2, ShapeConfig("train", CHECK_SEQ, CHECK_BATCH, "train"), env,
+        opt_cfg=opt_cfg)
+    g2 = torch.Generator(device=dev).manual_seed(CHECK_SEEDS[0])
+    base = draw_by_layer(bundle2.arg_specs[0], g2, dev)
+    b2 = lm_batches(arch2.model, CHECK_BATCH, CHECK_SEQ, CHECK_SEEDS[0], dev,
+                    1)[0]
+    runs = []
+    with no_plain_attention(), no_plain_ssd(), moe_recording() as (_, drop):
+        for _ in range(2):
+            p2 = shd.tree_map(torch.clone, base)
+            o2 = init_opt_state(p2, opt_cfg)
+            runs.append(bundle2.fn(p2, o2, b2))
+    check(leaves_equal(runs[0][0], runs[1][0])
+          and leaves_equal(runs[0][1], runs[1][1]),
+          f"two {name} kernel steps from one state differ")
+    log(f"{tag}-check two kernel steps from one state at capacity factor "
+        f"{arch2.model.moe.capacity_factor} (dropped_frac by call "
+        f"{[round(d.item(), 4) for d in drop[:4]]}): parameters and "
+        f"moments bit-equal (loss {runs[0][2]['loss'].item():.6f})")
+    out["readings"] = readings
+    del runs, p2, base, bundle2
+    torch.cuda.empty_cache()
+    log(f"[train-cli] python -m repro_torch.launch.train --arch {name} "
+        f"--smoke --steps 2 --batch 8 --seq 128 on the card: "
+        + " | ".join(train_cli(name)))
+    log(f"{tag} the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The '/'-joined key paths of a tree's leaves, in ``tree_leaves``
+    order."""
+    from repro_torch.distributed import sharding as shd
+    if isinstance(tree, dict):
+        return [p for k in tree for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix] * len(shd.tree_leaves(tree))
+
+
+def train_cli(arch: str = None) -> list:
+    """The lines of ``python -m repro_torch.launch.train --smoke --steps 2
+    --batch 8 --seq 128`` (``--arch arch`` if given) on the card, held to
+    exit 0 and end in its final loss."""
+    root = Path(__file__).resolve().parent
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *(["--arch", arch] if arch else []), "--smoke", "--steps", "2",
+         "--batch", "8", "--seq", "128", "--log-every", "1"],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and lines and lines[-1].startswith(
+        "final loss"), f"the train CLI {arch or ''}: rc {cli.returncode}, "
+        f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    return lines
 
 
 def profiled_step(fn) -> tuple:
@@ -3793,7 +4094,8 @@ def main() -> int:
     # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
     # (phase 7c), the Jamba prefill requests (phase 7d), the Whisper-small
     # prefill requests (phase 7e), the pack pass (phase 8), the Yi-6B
-    # train steps, the Whisper-small one and the Mamba-2-130M ones (phase 9)
+    # train steps, the Whisper-small one, the Mamba-2-130M ones, the
+    # Qwen3-30B-A3B ones and the Jamba ones (phase 9)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
         dense_shapes + moe_shapes + hybrid_shapes + encdec_shapes + \
         pack_shapes + train_shapes
@@ -3857,7 +4159,11 @@ def main() -> int:
         f"{encdec_out['consist_err']:.2e}; Yi-6B (16 layers) train steps "
         f"{', '.join(f'{w:.3f}' for w in train_out['walls'])} s, "
         f"Whisper-small {train_out['whisper_wall']:.3f} s, Mamba-2-130M "
-        f"{', '.join(f'{w:.3f}' for w in train_out['ssm']['walls'])} s; "
+        f"{', '.join(f'{w:.3f}' for w in train_out['ssm']['walls'])} s, "
+        f"Qwen3-30B-A3B ({MOE_TRAIN_LAYERS} layers) "
+        f"{', '.join(f'{w:.3f}' for w in train_out['moe']['walls'])} s, "
+        f"Jamba ({HYBRID_TRAIN_LAYERS} layers) "
+        f"{', '.join(f'{w:.3f}' for w in train_out['hybrid']['walls'])} s; "
         f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,11 +3,9 @@ its inputs, and the real tensors for tests and the smoke run.
 
 The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
 kinds of the SSM, dense, MoE and hybrid families (``transformer``) and of
-the enc-dec family (``encdec``), and for the ``train`` kind of the dense,
-enc-dec and SSM families (``training.trainer.make_train_step``). An MoE
-block (the MoE and hybrid families) has no differentiable path yet, so
-their train bundles raise; the SSM family trains on the CPU and raises at
-the ``ssd_scan`` backward on the card (``ROADMAP.md`` §1).
+the enc-dec family (``encdec``), and for the ``train`` kind of every
+family (``training.trainer.make_train_step``; an MoE block through the
+differentiable dispatch and combine of ``models.moe``).
 ``lower_step`` is the dry-run's XLA lowering and waits with
 ``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
 (or decode cache, or optimizer state), mapped through ``np.asarray``, into
@@ -123,14 +121,6 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
     pspecs = param_specs(cfg)
 
     if shape.kind == "train":
-        if cfg.moe is not None or cfg.family in ("moe", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: training an MoE block (family {cfg.family!r}) "
-                f"is not ported yet, so the MoE and hybrid families do not "
-                f"train: the expert products write with "
-                f"torch.bmm(..., out=), which autograd does not take (the "
-                f"Mamba-2 layers' ssd_scan backward is ported); see "
-                f"ROADMAP.md §1 (MoE training)")
         opt_cfg = opt_cfg or OptConfig(moment_dtype=run.opt_moment_dtype)
         step = make_train_step(cfg, run, env, opt_cfg)
         return StepBundle(fn=step, arg_specs=(

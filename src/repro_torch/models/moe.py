@@ -37,6 +37,24 @@ Three places where PyTorch differs from jnp, handled here:
   reference adds a missing slot into a pad row of its output, the combine
   reads a zero row after the expert outputs, so a non-finite expert row
   stays with its own token.
+
+Training differentiates the gather path through two
+``torch.autograd.Function``s, whose forwards are the serving ops
+themselves, so a step routes and sums as a prefill does:
+
+* ``_Dispatch`` gathers the token rows; its backward adds each token's up
+  to k slot gradients in ascending slot order, k gathers into zeros (the
+  reference's ``.at[idx].add``), and drops the pad row's. Autograd's own
+  backward of ``index_select`` is ``index_add_``, which adds a token's
+  slots with atomics on CUDA.
+* ``_Combine`` reads the expert outputs and their zero row; its backward
+  gives each slot row the one gated gradient of the token column that
+  reads it (a copy to unique rows) and each gate a row dot product, and
+  drops the zero row's and a missing column's.
+
+``bmm(..., out=)`` into the buffer with the zero row is taken only where
+autograd records nothing (serving); under grad the expert outputs come
+from a plain ``bmm`` and are copied above the zero row.
 """
 from __future__ import annotations
 
@@ -94,6 +112,11 @@ def _router(cfg: ModelConfig, p: dict, x2d: torch.Tensor):
     return w, ids, {"lb_loss": lb_loss, "z_loss": z_loss}
 
 
+def _records_grad(*tensors) -> bool:
+    """Whether autograd records a gradient through an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _first_of_run(sorted_rows: torch.Tensor) -> torch.Tensor:
     """Per row of a sorted [B, n] tensor, the index of each element's first
     equal element (``searchsorted(..., side="left")`` of the row on
@@ -109,6 +132,67 @@ def _scatter_kept(n: int, dest: torch.Tensor, src: torch.Tensor,
     out = torch.full((dest.shape[0], n + 1), fill, dtype=src.dtype,
                      device=dest.device)
     return out.scatter_(1, dest, src)[:, :n]
+
+
+def _token_slots(k: int, tg: int, idx: torch.Tensor):
+    """The slot map inverted: idx [B, E*C] (the token in each slot, ``tg``
+    for an empty one) -> (``inv`` [B, tg*k], each token's slots in
+    ascending order, ``has`` [B, tg*k], which of those k exist)."""
+    # sort the slot map by token (stable); the rank among the token's
+    # slots gives its column in [tg, k]
+    stok, sslot = torch.sort(idx, dim=-1, stable=True)
+    rank = torch.arange(idx.shape[1], device=idx.device) - _first_of_run(stok)
+    valid = stok < tg
+    dest = torch.where(valid, stok * k + rank, tg * k)
+    return (_scatter_kept(tg * k, dest, sslot, 0),
+            _scatter_kept(tg * k, dest, valid, False))
+
+
+def _slot_rows(c: int, inv: torch.Tensor) -> torch.Tensor:
+    """Slots ``inv`` [B, n] of each batch row -> their rows in the
+    expert-major [E*B*C] layout of ``_dispatch_group``."""
+    b = inv.shape[0]
+    return (inv // c) * (b * c) + \
+        torch.arange(b, device=inv.device).view(b, 1) * c + inv % c
+
+
+def _gather_tokens(x: torch.Tensor, idx: torch.Tensor, c: int):
+    """x [B, tg, d] -> xe [E, B*C, d], slot ``e*C + j`` of batch row ``b``
+    at row ``b*C + j`` of expert ``e`` (the pad row for an empty slot)."""
+    b, tg, d = x.shape
+    e = idx.shape[1] // c
+    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+    rows = idx.view(b, e, c).transpose(0, 1) + \
+        (torch.arange(b, device=x.device) * (tg + 1)).view(1, b, 1)
+    xe = x_pad.reshape(b * (tg + 1), d).index_select(0, rows.reshape(-1))
+    return xe.view(e, b * c, d)
+
+
+class _Dispatch(torch.autograd.Function):
+    """``_gather_tokens`` with its backward in slot order."""
+
+    @staticmethod
+    def forward(ctx, x, idx, c: int, k: int):
+        ctx.save_for_backward(idx)
+        ctx.c, ctx.k, ctx.x_shape = c, k, x.shape
+        return _gather_tokens(x, idx, c)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        (idx,) = ctx.saved_tensors
+        b, tg, d = ctx.x_shape
+        inv, has = _token_slots(ctx.k, tg, idx)
+        rows = _slot_rows(ctx.c, inv).view(b * tg, ctx.k).T
+        has = has.reshape(b * tg, ctx.k).T
+        safe = torch.where(has, rows, 0)
+        src = dxe.reshape(-1, d)
+        dx = torch.zeros((b * tg, d), dtype=dxe.dtype, device=dxe.device)
+        for j in range(ctx.k):
+            # a missing slot adds nothing: where, not a product with 0, so
+            # a non-finite row of another token stays out
+            dx += torch.where(has[j, :, None], src.index_select(0, safe[j]),
+                              0)
+        return dx.view(b, tg, d), None, None, None
 
 
 def _dispatch_group(m, tg: int, c: int, d: int, x: torch.Tensor,
@@ -130,11 +214,9 @@ def _dispatch_group(m, tg: int, c: int, d: int, x: torch.Tensor,
     slot = torch.where(keep, se * c + pos, e * c)
     idx = _scatter_kept(e * c, slot, stok, tg)
     gate = _scatter_kept(e * c, slot, sw.float(), 0.0)
-    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
-    rows = idx.view(b, e, c).transpose(0, 1) + \
-        (torch.arange(b, device=x.device) * (tg + 1)).view(1, b, 1)
-    xe = x_pad.reshape(b * (tg + 1), d).index_select(0, rows.reshape(-1))
-    return xe.view(e, b * c, d), idx, gate, keep.sum(dim=-1)
+    xe = _Dispatch.apply(x, idx, c, k) if _records_grad(x) \
+        else _gather_tokens(x, idx, c)
+    return xe, idx, gate, keep.sum(dim=-1)
 
 
 def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor,
@@ -152,6 +234,60 @@ def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor,
     return torch.bmm(h, p["wo"].to(dt), out=out)
 
 
+def _combine_rows(ye_rows: torch.Tensor, gate: torch.Tensor,
+                  idx: torch.Tensor, k: int, tg: int, c: int):
+    """The combine: y [B, tg, d] f32 and what its backward reads (the gates
+    ``g`` [B, tg, k, 1], the rows ``rows`` [k, B*tg] each token column
+    reads, the slot map's inverse ``inv`` and ``has``)."""
+    b, d = idx.shape[0], ye_rows.shape[1]
+    inv, has = _token_slots(k, tg, idx)
+    g = torch.gather(gate, 1, inv).view(b, tg, k, 1)
+    # a column with no slot reads the zero row, so it adds 0 and a
+    # non-finite expert row reaches no other token (0 x NaN is NaN; the
+    # JAX package adds a missing slot into a pad row that it cuts off)
+    rows = torch.where(has, _slot_rows(c, inv), ye_rows.shape[0] - 1)
+    rows = rows.view(b * tg, k).T.contiguous()            # [k, B*tg]
+    y = torch.zeros((b, tg, d), dtype=torch.float32, device=ye_rows.device)
+    for j in range(k):
+        # bf16 rows times the f32 gate: one f32 product, exact widening
+        y += ye_rows.index_select(0, rows[j]).view(b, tg, d) * g[:, :, j]
+    return y, (g, rows, inv, has)
+
+
+class _Combine(torch.autograd.Function):
+    """``_combine_rows`` with its backward to unique rows."""
+
+    @staticmethod
+    def forward(ctx, ye_rows, gate, idx, k: int, tg: int, c: int):
+        y, saved = _combine_rows(ye_rows, gate, idx, k, tg, c)
+        ctx.save_for_backward(ye_rows, *saved)
+        ctx.slots = idx.shape[1]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        ye_rows, g, rows, inv, has = ctx.saved_tensors
+        b, tg, k, _ = g.shape
+        dy = dy.reshape(b * tg, -1)
+        g = g.view(b * tg, k)
+        d_rows = torch.zeros_like(ye_rows)
+        d_g = torch.empty((b * tg, k), dtype=torch.float32, device=dy.device)
+        for j in range(k):
+            # each slot row is read by at most one column: a copy to unique
+            # rows (the missing columns all land on the zero row, cleared
+            # below), rounded to the rows' dtype as autograd's product does
+            d_rows.index_copy_(0, rows[j], (dy * g[:, j:j + 1]).to(
+                d_rows.dtype))
+            d_g[:, j] = torch.sum(dy * ye_rows.index_select(0, rows[j]),
+                                  dim=-1)
+        d_rows[-1].zero_()
+        # each column's gate gradient to its slot; a missing column's to a
+        # column that is cut off
+        dest = torch.where(has, inv, ctx.slots)
+        d_gate = _scatter_kept(ctx.slots, dest, d_g.view(b, tg * k), 0.0)
+        return d_rows, d_gate, None, None, None, None
+
+
 def _combine_group(m, tg: int, c: int, d: int, ye_rows: torch.Tensor,
                    idx: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """ye_rows [E*B*C + 1, d]: the expert outputs in ``_dispatch_group``'s
@@ -159,28 +295,9 @@ def _combine_group(m, tg: int, c: int, d: int, ye_rows: torch.Tensor,
     [B, tg, d] f32: each token's gated expert outputs, added to zeros in
     ascending slot order without atomics, one slot column at a time (no
     [B, tg, k, d] temporary)."""
-    b, k = idx.shape[0], m.top_k
-    # each token's slots, ascending: sort the slot map by token (stable);
-    # the rank among the token's slots gives its column in [tg, k]
-    stok, sslot = torch.sort(idx, dim=-1, stable=True)
-    rank = torch.arange(idx.shape[1], device=idx.device) - _first_of_run(stok)
-    valid = stok < tg
-    dest = torch.where(valid, stok * k + rank, tg * k)
-    inv = _scatter_kept(tg * k, dest, sslot, 0)           # [B, tg*k] slots
-    has = _scatter_kept(tg * k, dest, valid, False)
-    g = torch.gather(gate, 1, inv).view(b, tg, k, 1)
-    rows = (inv // c) * (b * c) + \
-        torch.arange(b, device=idx.device).view(b, 1) * c + inv % c
-    # a column with no slot reads the zero row, so it adds 0 and a
-    # non-finite expert row reaches no other token (0 x NaN is NaN; the
-    # JAX package adds a missing slot into a pad row that it cuts off)
-    rows = torch.where(has, rows, ye_rows.shape[0] - 1)
-    rows = rows.view(b * tg, k).T.contiguous()            # [k, B*tg]
-    y = torch.zeros((b, tg, d), dtype=torch.float32, device=ye_rows.device)
-    for j in range(k):
-        # bf16 rows times the f32 gate: one f32 product, exact widening
-        y += ye_rows.index_select(0, rows[j]).view(b, tg, d) * g[:, :, j]
-    return y
+    if _records_grad(ye_rows, gate):
+        return _Combine.apply(ye_rows, gate, idx, m.top_k, tg, c)
+    return _combine_rows(ye_rows, gate, idx, m.top_k, tg, c)[0]
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, env: MeshEnv,
@@ -208,10 +325,16 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, env: MeshEnv,
         m, s, c, d, x, w.view(b, s, m.top_k), ids.view(b, s, m.top_k))
     # the expert outputs and one zero row after them, for the combine
     rows = b * c * m.n_experts
-    ye_rows = torch.empty((rows + 1, d), device=x.device, dtype=
-                          torch.promote_types(xe.dtype, p["wo"].dtype))
-    ye_rows[rows:].zero_()
-    _expert_ffn(cfg, p, xe, out=ye_rows[:rows].view(m.n_experts, b * c, d))
+    if _records_grad(x, *p.values()):
+        # autograd takes no out=: the products, then a copy above the row
+        ye = _expert_ffn(cfg, p, xe).view(rows, d)
+        ye_rows = torch.cat([ye, ye.new_zeros(1, d)])
+    else:
+        ye_rows = torch.empty((rows + 1, d), device=x.device, dtype=
+                              torch.promote_types(xe.dtype, p["wo"].dtype))
+        ye_rows[rows:].zero_()
+        _expert_ffn(cfg, p, xe,
+                    out=ye_rows[:rows].view(m.n_experts, b * c, d))
     y = _combine_group(m, s, c, d, ye_rows, idx, gate)
     aux["dropped_frac"] = 1.0 - torch.sum(kept) / (t * m.top_k)
     return y.to(x.dtype), aux

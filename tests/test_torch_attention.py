@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import attention
 from repro_torch.models.model import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

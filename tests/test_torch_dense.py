@@ -39,6 +39,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as tmodel
 from repro_torch.models import transformer
 from repro_torch.models.model import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -33,6 +33,7 @@ from repro_torch.launch import serve
 from repro_torch.serving import replica, router
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.types import Request, SLOConfig
+from torch_threads import one_torch_thread  # noqa: F401
 from serving_scenarios import (CHUNK, SEQ, TINY_CFG, build_models,
                                combined_bytes)
 

@@ -47,6 +47,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe, ssm, transformer
 from repro_torch.models.model import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "jamba-v0.1-52b"
 CPU = "cpu"

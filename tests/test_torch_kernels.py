@@ -15,6 +15,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 MM_SHAPES = [(8, 128, 128), (64, 256, 128), (128, 128, 384), (256, 512, 256),
              (40, 128, 256)]

@@ -38,6 +38,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers, ssm, transformer
 from repro_torch.models import model as tmodel
 from repro_torch.models.model import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's sweep, its model-form
 # length, and one whose chunk halves (96 % 64 -> 32)
@@ -469,27 +470,28 @@ def test_decode_from_zero_cache_matches_prefill(f32):
 
 @pytest.mark.parametrize("what", ["train", "hybrid", "encdec"])
 def test_unported_paths_raise(what):
-    """The hybrid family's training step (its MoE blocks have no
-    differentiable path yet) raises, naming the roadmap; the SSM and
-    enc-dec families' train bundles build, with the parameters, the
-    optimizer state and the batch as inputs, the first two donated
-    (tests/test_torch_training.py runs them against the JAX package);
-    prefill and decode of every family run (tests/test_torch_hybrid.py,
-    tests/test_torch_encdec.py)."""
+    """What is still unported raises, naming the roadmap: attention over a
+    query chunk at a nonzero offset (context parallelism across devices).
+    Every family's train bundle builds, the hybrid family's MoE blocks
+    included, with the parameters, the optimizer state and the batch as
+    inputs, the first two donated (tests/test_torch_training.py runs them
+    against the JAX package); prefill and decode of every family run
+    (tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
+    from repro_torch.models import attention
     env = make_host_mesh(device=CPU)
     names = {"hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
              "train": "mamba2-130m"}
     cfg = get_arch(names[what]).model.reduced()
     arch = ArchConfig(model=cfg)
-    train = ShapeConfig("x", 32, 1, "train")
-    if what == "hybrid":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tmodel.make_step_bundle(arch, train, env)
-    else:
-        bundle = tmodel.make_step_bundle(arch, train, env)
-        assert bundle.donate == (0, 1)
-        assert set(bundle.arg_specs[1]) == {"m", "v", "step"}
-        assert "targets" in bundle.arg_specs[2]
+    q = torch.zeros((1, 8, cfg.n_heads, cfg.resolved_head_dim))
+    kv = torch.zeros((1, 8, cfg.n_kv_heads, cfg.resolved_head_dim))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attention.blocked_attention(q, kv, kv, q_offset=8)
+    bundle = tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, "train"),
+                                     env)
+    assert bundle.donate == (0, 1)
+    assert set(bundle.arg_specs[1]) == {"m", "v", "step"}
+    assert "targets" in bundle.arg_specs[2]
     for kind in ("prefill", "decode"):
         tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, kind), env)
 

@@ -43,6 +43,7 @@ from repro_torch.configs import get_arch
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
 from repro_torch.models.model import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -359,3 +360,149 @@ def test_combine_is_bit_equal_to_the_one_before_the_nan_repair(b, s, e, k,
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     if cf < 1.0:
         assert int(kept.sum()) < b * s * k
+
+
+# --- the gather path's gradients -------------------------------------------
+
+def _tracked(tparams, tx):
+    """The port's parameters and input as leaves that autograd tracks."""
+    return ({k: v.detach().clone().requires_grad_() for k, v in
+             tparams.items()}, tx.detach().clone().requires_grad_())
+
+
+@pytest.mark.parametrize("cf", [1e-6, 1.0, 8.0], ids=["most", "some", "none"])
+def test_gather_gradients_match_jax_vjp(cf):
+    """The gather path's gradients (x, router, wi, wg, wo) against
+    ``jax.vjp`` of the JAX ``apply_moe`` on its host mesh, f32 parameters,
+    under one random output cotangent and the loss weights of the aux
+    losses (0.01 and 0.001, as ``loss_fn``): 2 x 64 tokens, 8 experts,
+    top-2, at capacity factors that drop most (8 slots an expert), some
+    and none of the assignments."""
+    jcfg, tcfg = _cfgs(cf=cf)
+    params, tparams = _params(jcfg, seed=3, f32=True)
+    jx, tx = _x((2, 64, jcfg.d_model), 4, jnp.float32)
+    dy = np.random.default_rng(5).standard_normal(
+        (2, 64, jcfg.d_model)).astype(np.float32)
+    aux_ct = {"lb_loss": np.float32(0.01), "z_loss": np.float32(0.001),
+              "dropped_frac": np.float32(0.0)}
+
+    def vjp(p, x):
+        (y, aux), back = jax.vjp(
+            lambda p_, x_: jax_moe.apply_moe(jcfg, p_, x_, jax_mesh()), p, x)
+        return aux, back((jnp.asarray(dy), aux_ct))
+    jaux, (jgp, jgx) = jax.jit(vjp)(params, jx)
+    tparams, tx = _tracked(tparams, tx)
+    y, taux = moe.apply_moe(tcfg, tparams, tx, make_host_mesh(device=CPU))
+    (torch.sum(y * torch.from_numpy(dy)) + 0.01 * taux["lb_loss"]
+     + 0.001 * taux["z_loss"]).backward()
+    n = 2 * 64 * jcfg.moe.top_k
+    kept = round((1 - float(taux["dropped_frac"])) * n)
+    assert kept == round((1 - float(jaux["dropped_frac"])) * n)
+    assert (kept <= n // 2) if cf < 1.0 else (n // 2 < kept < n) \
+        if cf == 1.0 else kept == n
+    for k, g in jgp.items():
+        np.testing.assert_allclose(tparams[k].grad.numpy(), np.asarray(g),
+                                   err_msg=k, **F32_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **F32_TOL)
+
+
+@pytest.mark.parametrize("cf", [1e-6, 1.0, 8.0], ids=["most", "some", "none"])
+def test_dispatch_backward_is_the_slot_ordered_sum(cf):
+    """The dispatch's gradient of each token is its slots' gradient rows
+    added in ascending slot order in bf16, the reference's ``.at[idx].add``
+    order, bit for bit: here against that sum written out slot by slot
+    (3 x 40 bf16 tokens, 16 experts, top-3); the pad row's is dropped."""
+    b, s, e, k = 3, 40, 16, 3
+    _, tcfg = _cfgs(e, k, cf)
+    d = tcfg.d_model
+    c = moe.capacity(s, e, k, cf)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)
+                         ).to(torch.bfloat16).requires_grad_()
+    ids, w = _routes(rng, b, s, e, k, skew=False)
+    xe, idx, _, kept = moe._dispatch_group(
+        tcfg.moe, s, c, d, x, torch.from_numpy(w),
+        torch.from_numpy(ids).long())
+    dxe = torch.from_numpy(rng.standard_normal(xe.shape).astype(np.float32)
+                           ).to(torch.bfloat16)
+    xe.backward(dxe)
+    want = torch.zeros((b, s, d), dtype=torch.bfloat16)
+    rows = dxe.view(e, b, c, d)
+    for slot in range(e * c):                  # ascending slot order
+        for row in range(b):
+            tok = int(idx[row, slot])
+            if tok < s:
+                want[row, tok] = want[row, tok] + rows[slot // c, row,
+                                                       slot % c]
+    assert torch.equal(x.grad.view(torch.int16), want.view(torch.int16))
+    assert (int(kept.sum()) < b * s * k) == (cf < 8.0)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf], ids=["nan", "inf"])
+def test_a_non_finite_expert_row_leaves_the_other_gradients_finite(bad):
+    """Under grad, the probe of ``test_a_non_finite_expert_row_stays_with_
+    its_token``: one non-finite element in expert 0's first slot row of
+    the output (so in the gate gradient of that slot), and one in the
+    same slot's row of the dispatch's incoming gradient. Only the token in
+    that slot gets a non-finite input gradient; the tokens that lost an
+    assignment, whose missing columns read the zero row, stay finite; the
+    gradients equal ``jax.vjp`` of the JAX ``apply_moe`` with the output
+    row poisoned the same way."""
+    jcfg, tcfg = _cfgs(cf=PROBE_CF)
+    params, tparams = _params(jcfg, seed=0, f32=True)
+    jx, tx = _x((PROBE_B, PROBE_S, jcfg.d_model), 0, jnp.float32)
+    dy = np.random.default_rng(1).standard_normal(
+        (PROBE_B, PROBE_S, jcfg.d_model)).astype(np.float32)
+    jcombine, tcombine, tdispatch = (jax_moe._combine_group,
+                                     moe._combine_group, moe._dispatch_group)
+    held = []
+
+    def jax_poisoned(m, tg, c, d, ye_row, idx_row, gate_row):
+        return jcombine(m, tg, c, d, ye_row.at[0, 0, 0].set(bad), idx_row,
+                        gate_row)
+
+    def port_poisoned(m, tg, c, d, ye_rows, idx, gate):
+        ye_rows = ye_rows.clone()
+        ye_rows[0, 0] = bad                   # expert 0, batch row 0, slot 0
+        held.append(int(idx[0, 0]))
+        return tcombine(m, tg, c, d, ye_rows, idx, gate)
+
+    def poison(g):
+        g = g.clone()
+        g[0, 0] = bad                         # expert 0, batch row 0, slot 0
+        return g
+
+    def grad_poisoned(*a):
+        xe, *rest = tdispatch(*a)
+        if poison_grad:
+            xe.register_hook(poison)
+        return (xe, *rest)
+
+    def vjp(p, x):
+        (y, aux), back = jax.vjp(
+            lambda p_, x_: jax_moe.apply_moe(jcfg, p_, x_, jax_mesh()), p, x)
+        return back((jnp.asarray(dy), {k: jnp.zeros_like(v)
+                                       for k, v in aux.items()}))
+    with mock.patch.object(jax_moe, "_combine_group", jax_poisoned):
+        jgp, jgx = jax.jit(vjp)(params, jx)
+    grads = []
+    for poison_grad in (False, True):
+        tp, x = _tracked(tparams, tx)
+        with mock.patch.object(moe, "_combine_group", port_poisoned), \
+                mock.patch.object(moe, "_dispatch_group", grad_poisoned):
+            y, _ = moe.apply_moe(tcfg, tp, x, make_host_mesh(device=CPU))
+        torch.sum(y * torch.from_numpy(dy)).backward()
+        grads.append((tp, x.grad.numpy()[0]))
+    token = held[0]
+    for tp, gx in grads:
+        bad_rows = ~np.isfinite(gx).all(-1)
+        assert bad_rows[token] and bad_rows.sum() == 1
+    (tp, gx), (_, gx2) = grads
+    np.testing.assert_array_equal(np.isnan(gx), np.isnan(np.asarray(jgx)[0]))
+    np.testing.assert_allclose(gx, np.asarray(jgx)[0], equal_nan=True,
+                               **F32_TOL)
+    for k, g in jgp.items():
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(g),
+                                   equal_nan=True, err_msg=k, **F32_TOL)
+    np.testing.assert_array_equal(np.delete(gx2, token, 0),
+                                  np.delete(gx, token, 0))

@@ -29,6 +29,7 @@ from repro_torch.core.streaming import HostModel, PreloadExecutor
 from repro_torch.launch import serve
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.weight_cache import WeightCache
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = dict(num_layers=4, d_model=256, n_heads=4, n_kv_heads=4, d_ff=1024,
              vocab=1024, name="gptneo-tiny")

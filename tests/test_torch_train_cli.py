@@ -1,9 +1,9 @@
 """The port's training CLI (``repro_torch.launch.train``) on the CPU: it
 converges and resumes as ``tests/test_system.py`` holds the JAX package's
 CLI to, prints the same lines, checkpoints in the layout the JAX package
-restores, stops on preemption with a checkpoint, trains every dense and
-SSM arch at its reduced size, and raises where it must: without a card
-unless ``--device cpu`` is given, and for an arch with an MoE block.
+restores, stops on preemption with a checkpoint, trains every arch at its
+reduced size (the MoE and hybrid ones too), and raises without a card
+unless ``--device cpu`` is given.
 """
 import re
 import tempfile
@@ -15,6 +15,7 @@ import torch
 from repro.checkpoint import ckpt as jax_ckpt
 from repro_torch.checkpoint import ckpt
 from repro_torch.launch import train
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP_LINE = re.compile(r"^step +\d+ loss \d+\.\d{4} gnorm \d+\.\d{3} "
                        r"lr \d\.\d\de[-+]\d\d \d+ms$")
@@ -116,9 +117,28 @@ def test_preemption_checkpoints_and_resume_continues(arch, monkeypatch,
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b",
                                   "jamba-v0.1-52b"])
-def test_an_arch_with_moe_blocks_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cli("--arch", arch, "--steps", "1")
+def test_every_moe_and_hybrid_arch_trains(arch, capsys):
+    losses = _cli("--arch", arch, "--steps", "2", "--log-every", "1")
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert sum(bool(STEP_LINE.match(line)) for line in lines) == 2, lines
+    assert lines[-1] == f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})"
+
+
+def test_moe_training_converges_and_resumes(capsys):
+    """The MoE family through the CLI at the dense test's settings: the
+    reduced Qwen3-30B-A3B's loss falls, and a resumed run starts at the
+    checkpoint's step (on the card the same run goes through the
+    ``flash_attention`` kernels, forward and backward)."""
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--device", "cpu", "--arch", "qwen3-moe-30b-a3b", "--smoke",
+                "--batch", "8", "--seq", "32", "--ckpt-dir", d,
+                "--log-every", "100"]
+        l1 = train.main([*args, "--steps", "12", "--ckpt-every", "6"])
+        l2 = train.main([*args, "--steps", "18", "--resume"])
+    assert len(l2) == 6                      # resumed at step 12
+    assert all(np.isfinite(l1 + l2)) and np.mean(l2) < l1[0]
+    assert "resumed from step 12" in capsys.readouterr().out
 
 
 def test_without_device_cpu_the_cli_needs_a_card():

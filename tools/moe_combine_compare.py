@@ -11,7 +11,11 @@ layout it reads: ``ye`` [E, B*C, d], or ``ye_rows`` [E*B*C + 1, d] with a
 zero row last, since the combine reads a zero row for a missing slot).
 Two shapes: a prefill of
 2 x 4096 tokens (320 slots an expert a row) and a decode step at batch 8
-(8 slots). Both versions must give bit-equal outputs. Each is then timed
+(8 slots). Then the whole serving MoE layer, each version's ``apply_moe``
+under ``torch.no_grad()`` over the same 2 x 4096 bf16 tokens with one
+layer's random weights (its router, dispatch, expert products written
+into the buffer with the zero row, and combine). Both versions must give
+bit-equal outputs. Each is then timed
 in turns, OLD NEW NEW OLD twice: device time (CUDA events around 20
 back-to-back calls, median of 5 rounds), one call with its host dispatch
 (``chip_smoke.call_ms``) and the peak of the memory the call allocates
@@ -78,11 +82,30 @@ def peak_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+def log_reads(smi: str, label: str, reads: dict, out: dict) -> None:
+    """Logs both versions' readings and their medians' ratio; the medians
+    go to ``out[label]``."""
+    med = {k: {q: float(np.median(v)) for q, v in r.items()}
+           for k, r in reads.items()}
+    cs.log(f"[combine] {smi}: {label}: bit-equal; "
+           + "; ".join(f"{k}: device " + ", ".join(
+               f"{t:.4f}" for t in r["device_ms"]) + " ms, one call "
+               + ", ".join(f"{t:.4f}" for t in r["call_ms"])
+               + " ms, peak " + ", ".join(f"{t:.1f}" for t in r["peak_mb"])
+               + " MB" for k, r in reads.items())
+           + "; new/old " + ", ".join(
+               f"{q} {med['new'][q] / med['old'][q]:.3f}x"
+               for q in ("device_ms", "call_ms", "peak_mb")))
+    out[label] = med
+
+
 def main(old_path: str, new_path: str) -> int:
     if not torch.cuda.is_available():
         print("moe_combine_compare: needs one CUDA card", file=sys.stderr)
         return 2
     from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.launch.mesh import make_host_mesh
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -108,19 +131,26 @@ def main(old_path: str, new_path: str) -> int:
             reads[k]["device_ms"].append(cs.device_ms(fn))
             reads[k]["call_ms"].append(cs.call_ms(fn))
             reads[k]["peak_mb"].append(peak_bytes(fn) / 1e6)
-        med = {k: {q: float(np.median(v)) for q, v in r.items()}
-               for k, r in reads.items()}
-        cs.log(f"[combine] {smi}: {label} (capacity {args['new'][2]}): "
-               f"bit-equal; "
-               + "; ".join(f"{k}: device " + ", ".join(
-                   f"{t:.4f}" for t in r["device_ms"]) + " ms, one call "
-                   + ", ".join(f"{t:.4f}" for t in r["call_ms"])
-                   + f" ms, peak {r['peak_mb'][0]:.1f} MB"
-                   for k, r in reads.items())
-               + "; new/old " + ", ".join(
-                   f"{q} {med['new'][q] / med['old'][q]:.3f}x"
-                   for q in ("device_ms", "call_ms")))
-        out[label] = med
+        log_reads(smi, f"{label} (capacity {args['new'][2]})", reads, out)
+    label = "serving layer 2 x 4096"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = init_params(mods["new"].moe_specs(cfg), gen, dev)
+    x = torch.randn((2, 4096, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    env = make_host_mesh(device=dev)
+    with torch.no_grad():
+        ys = {k: mod.apply_moe(cfg, p, x, env)[0] for k, mod in mods.items()}
+        cs.check(torch.equal(cs.bits(ys["old"]), cs.bits(ys["new"])),
+                 f"{label}: the two layers differ")
+        del ys
+        reads = {k: {"device_ms": [], "call_ms": [], "peak_mb": []}
+                 for k in mods}
+        for k in ("old", "new", "new", "old") * 2:
+            fn = (lambda mod: lambda: mod.apply_moe(cfg, p, x, env))(mods[k])
+            reads[k]["device_ms"].append(cs.device_ms(fn))
+            reads[k]["call_ms"].append(cs.call_ms(fn))
+            reads[k]["peak_mb"].append(peak_bytes(fn) / 1e6)
+    log_reads(smi, label, reads, out)
     print(json.dumps({"card": smi, "medians": out}))
     return 0
 
