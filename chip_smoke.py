@@ -31,6 +31,15 @@ executors, then drives each path through the port's own entry points:
   one more under the profiler, the kernel at that shape against its plain
   version, its tensor-core bound and bf16 SDPA, and decode at batch 8
   over a 4096-slot KV cache;
+* context-parallel prefill (phase 7f): the same Yi-6B weights through
+  ``make_step_bundle(attn_mode="cp", seq_shards=4)``, four sequence shards
+  of 1024 queries run in turn, layer by layer, each attending at its
+  offset to the K/V of the whole sequence: its logits against the
+  ordinary prefill's (2 x 256), three prefill requests of 2 x 4096 tokens
+  with 128 bf16 ``flash_attention`` launches each (32 at each offset),
+  one more under the profiler, and each shard's kernel against its plain
+  version, bit for bit the whole call's rows, timed beside its bound and
+  bf16 SDPA over the shifted causal mask;
 * the MoE model path: Qwen3-30B-A3B (full width, all 48 layers, 128
   experts top-8, bf16, random weights drawn on the card layer by layer
   from a seed) through the same entry points: prefill through the kernel
@@ -205,6 +214,9 @@ CONSIST_BATCH, CONSIST_SEQ = 2, 256
 DENSE = "yi-6b"
 DENSE_BATCH, DENSE_SEQ, DENSE_REQUESTS = 2, 4096, 3
 DENSE_DECODE_BATCH, DENSE_DECODE_STEPS = 8, 16
+# phase 7f: Yi-6B prefill over 4 sequence shards in turn (context
+# parallelism on one card), 1024 queries a shard at 2 x 4096
+CP_SHARDS = 4
 # Yi-6B logits (up to about 5 with these random weights) of two runs that
 # differ in attention's f32 summation order (the kernel's online softmax
 # over 64-key tiles, P carried as two bf16 terms, vs the plain version's
@@ -295,13 +307,13 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 2e-2
 BWD_BF16_MAX, BWD_BF16_REL_L2, BWD_F32_MAX = 2e-2, 1e-2, 1e-4
 # every key a training path runs (Yi-6B and Qwen3, Jamba's GQA group of 4,
 # Whisper's three), a window and an f32 case at a small size
-BWD_KEYS = ((2, 4096, 4096, 32, 4, 128, True, 0, torch.bfloat16),
-            (2, 4096, 4096, 32, 8, 128, True, 0, torch.bfloat16),
-            (8, 1500, 1500, 12, 12, 64, False, 0, torch.bfloat16),
-            (8, 448, 1500, 12, 12, 64, False, 0, torch.bfloat16),
-            (8, 448, 448, 12, 12, 64, True, 0, torch.bfloat16),
-            (2, 1000, 1000, 8, 2, 128, True, 256, torch.bfloat16),
-            (1, 1024, 1024, 12, 12, 64, True, 0, torch.float32))
+BWD_KEYS = ((2, 4096, 4096, 32, 4, 128, True, 0, 0, torch.bfloat16),
+            (2, 4096, 4096, 32, 8, 128, True, 0, 0, torch.bfloat16),
+            (8, 1500, 1500, 12, 12, 64, False, 0, 0, torch.bfloat16),
+            (8, 448, 1500, 12, 12, 64, False, 0, 0, torch.bfloat16),
+            (8, 448, 448, 12, 12, 64, True, 0, 0, torch.bfloat16),
+            (2, 1000, 1000, 8, 2, 128, True, 256, 0, torch.bfloat16),
+            (1, 1024, 1024, 12, 12, 64, True, 0, 0, torch.float32))
 # phase 9e, the SSM family: Mamba-2-130M at full width and all 24 layers
 # (about 129M parameters, 1.6 GB at 12 B a parameter), bf16 with f32 AdamW
 # moments, drawn from a seed of its own (the step check's are CHECK_SEEDS),
@@ -554,9 +566,10 @@ def bound_ms(flops: float, nbytes: float, peaks, dtype=torch.float32):
 def shape_work(kernel: str, key):
     """(FLOPs, bytes) one launch at the wrapper's shape ``key`` needs: each
     input read once, the output written once. Matmul in f32; attention in
-    its key's dtype (4 or 2 B an element); causal attention counts the
-    s(s+1)/2 visible (q, k) pairs per head, 2 hd FLOPs each for QK^T and for
-    PV. The SSD scan (f32) counts, per chunk of Q, the Q(Q+1)/2 causal
+    its key's dtype (4 or 2 B an element) counts the (q, k) pairs its
+    masks leave visible per head (``visible_pairs``: the query offset, the
+    causal mask and the window), 2 hd FLOPs each for QK^T and for PV. The
+    SSD scan (f32) counts, per chunk of Q, the Q(Q+1)/2 causal
     pairs once for C B^T (shared by the heads, 2N each) and per head for
     the product with X (2P each), plus C . state and the state update
     (2QNP each per head). Packing moves bytes only: R x C
@@ -575,12 +588,27 @@ def shape_work(kernel: str, key):
         r, c, tr, tc, dtype = key
         padded = -(-r // tr) * tr * (-(-c // tc) * tc)
         return 0.0, float(dtype.itemsize) * (r * c + padded)
-    b, sq, sk, hq, hkv, hd, causal, window, dtype = key
-    check(window == 0 and (sq == sk or not causal),
-          f"attention work at {key}")
-    pairs = sq * (sq + 1) / 2 if causal else sq * sk
+    b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtype = key
+    pairs = visible_pairs(sq, sk, causal, window, q_offset)
     return 4.0 * hd * pairs * hq * b, float(dtype.itemsize) * b * hd * (
         2 * sq * hq + 2 * sk * hkv)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
+    """The (query, key) pairs attention sees under its masks: query row i
+    at position i + ``q_offset`` sees keys j < sk with j <= i + q_offset
+    when causal and i + q_offset - j < window under a window."""
+    total = 0
+    for i in range(sq):
+        qpos = i + q_offset
+        lo, hi = 0, sk - 1
+        if causal:
+            hi = min(hi, qpos)
+        if window:
+            lo = max(lo, qpos - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
 
 
 def ssd_pass_work(key) -> dict:
@@ -650,7 +678,7 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
     """The kernel launches one request of ``cfg`` makes, from the planning
     graph the executors run, keyed as the wrappers count them:
     ("streamed_matmul", (M, K, N)) per projection and ("flash_attention",
-    (B, S, S, Hq, Hkv, hd, True, 0, f32)) per attention."""
+    (B, S, S, Hq, Hkv, hd, True, 0, 0, f32)) per attention."""
     from repro_torch.core.graph import build_lm_graph
     wshape = weight_shapes(cfg)
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -661,7 +689,8 @@ def path_shapes(cfg, seq: int, batch: int = 1) -> Counter:
                  (batch * seq, *wshape[op.name.split(".")[-1]]))] += 1
         elif op.kind == "attention":
             out[("flash_attention",
-                 (batch, seq, seq, nq, nkv, hd, True, 0, torch.float32))] += 1
+                 (batch, seq, seq, nq, nkv, hd, True, 0, 0,
+                  torch.float32))] += 1
     return out
 
 
@@ -913,12 +942,12 @@ def logits_close(got, want, what, atol=LOGIT_ATOL, rel_l2=LOGIT_REL_L2):
 
 
 def flash_key(cfg, batch: int, seq: int, keys: int = None,
-              causal: bool = True) -> tuple:
+              causal: bool = True, q_offset: int = 0) -> tuple:
     """The bf16 ``flash_attention`` launch key of one prefill layer (``keys``
-    positions of keys, ``seq`` by default)."""
+    positions of keys, ``seq`` by default; the queries at ``q_offset``)."""
     return ("flash_attention", (batch, seq, keys or seq, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.resolved_head_dim, causal,
-                                0, torch.bfloat16))
+                                0, q_offset, torch.bfloat16))
 
 
 def ssd_key(cfg, batch: int, seq: int) -> tuple:
@@ -1194,12 +1223,12 @@ def consistency(name: str, arch, params, gen, dev, env, atol: float,
 
 def prefill_requests(name: str, cfg, pre, params, gen, dev, n: int,
                      batch: int, seq: int,
-                     record=contextlib.nullcontext) -> dict:
+                     record=contextlib.nullcontext, expect=None) -> dict:
     """``n`` prefill requests of ``batch`` x ``seq`` tokens (and frames,
     for the audio stub) through the bundle ``pre``: each request's wall
     and what ``record`` yielded around it, finite logits, and the launches
-    by (kernel, key), exactly ``prefill_launches`` a request. Returns those
-    and the last request's batch."""
+    by (kernel, key), exactly ``expect`` a request (``prefill_launches``
+    by default). Returns those and the last request's batch."""
     from repro_torch.kernels import ops
     requests = [prefill_batch(cfg, batch, seq, gen, dev) for _ in range(n)]
     torch.cuda.synchronize()
@@ -1216,7 +1245,7 @@ def prefill_requests(name: str, cfg, pre, params, gen, dev, n: int,
               and bool(torch.isfinite(out).all()),
               f"{name} prefill logits {tuple(out.shape)} not finite")
     shapes = counted()
-    per_request = prefill_launches(cfg, batch, seq)
+    per_request = expect or prefill_launches(cfg, batch, seq)
     check(shapes == Counter({k: c * n for k, c in per_request.items()}),
           f"prefill launches {dict(shapes)}, expected {dict(per_request)} a "
           f"request")
@@ -1259,6 +1288,134 @@ def decode_run(name: str, arch, params, gen, dev, env, batch: int,
     pos = torch.full((batch,), seq - 1, dtype=torch.int32, device=dev)
     prof = profiled_call(lambda: dec.fn(params, cache, tok, pos), ranges)
     return {"walls": walls, "cache": cache, "profile": prof}
+
+
+def cp_launches(cfg, batch: int, seq: int, shards: int) -> Counter:
+    """The launches of one context-parallel prefill of ``batch`` x ``seq``
+    tokens over ``shards`` sequence shards: in every layer one bf16
+    ``flash_attention`` a shard, its seq / shards queries at the shard's
+    offset over the keys of the whole sequence."""
+    s_loc = seq // shards
+    return Counter({flash_key(cfg, batch, s_loc, seq, q_offset=i * s_loc):
+                    cfg.num_layers for i in range(shards)})
+
+
+def cp_phase(dev, env, smi: str, arch, params, gen, measure,
+             measured: dict) -> dict:
+    """Phase 7f: Yi-6B (``params``, drawn by phase 7b) through
+    ``make_step_bundle(attn_mode="cp", seq_shards=CP_SHARDS)``. (a) At
+    CONSIST_BATCH x CONSIST_SEQ its logits through the kernels against the
+    ordinary prefill's through the kernels; (b) DENSE_REQUESTS prefills of
+    DENSE_BATCH x DENSE_SEQ with exactly ``cp_launches`` each and one more
+    under the profiler; (c) each shard's key against its plain version,
+    timed with its bound and bf16 SDPA over the shifted causal mask
+    (``measure``), and each shard's rows bit for bit the whole call's.
+    Returns the requests' launches, walls and the logits' errors."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model
+    t_phase = time.perf_counter()
+    cfg = arch.model
+
+    def bundle(seq, batch, **kw):
+        return model.make_step_bundle(arch, ShapeConfig(
+            "prefill", seq, batch, "prefill"), env, **kw)
+
+    # (a) the logits of the two prefills at the consistency shape
+    batch = prefill_batch(cfg, CONSIST_BATCH, CONSIST_SEQ, gen, dev)
+    ops.reset_launch_counts()
+    got = bundle(CONSIST_SEQ, CONSIST_BATCH, attn_mode="cp",
+                 seq_shards=CP_SHARDS).fn(params, batch)
+    torch.cuda.synchronize()
+    check(counted() == cp_launches(cfg, CONSIST_BATCH, CONSIST_SEQ,
+                                   CP_SHARDS),
+          f"cp consistency prefill launches {dict(counted())}")
+    want = bundle(CONSIST_SEQ, CONSIST_BATCH).fn(params, batch)
+    err, rel = logits_close(
+        got, want, f"Yi-6B cp prefill over {CP_SHARDS} shards vs the "
+        f"ordinary prefill", DENSE_LOGIT_ATOL, DENSE_LOGIT_REL_L2)
+    log(f"[cp] {DENSE} prefill {CONSIST_BATCH} x {CONSIST_SEQ} over "
+        f"{CP_SHARDS} sequence shards through flash_attention vs the "
+        f"ordinary prefill through it: max abs err {err:.3e} (atol "
+        f"{DENSE_LOGIT_ATOL}), relative L2 {rel:.3e} (<= "
+        f"{DENSE_LOGIT_REL_L2}), |logits| up to "
+        f"{want.abs().max().item():.3f}, same argmax in "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{CONSIST_BATCH} "
+        f"rows")
+    del got, want, batch
+
+    # (b) the requests, then one more under the profiler
+    pre = bundle(DENSE_SEQ, DENSE_BATCH, attn_mode="cp",
+                 seq_shards=CP_SHARDS)
+    per_request = cp_launches(cfg, DENSE_BATCH, DENSE_SEQ, CP_SHARDS)
+    req = prefill_requests("Yi-6B cp", cfg, pre, params, gen, dev,
+                           DENSE_REQUESTS, DENSE_BATCH, DENSE_SEQ,
+                           expect=per_request)
+    walls, shapes = req["walls"], req["shapes"]
+    tokens_req = DENSE_BATCH * DENSE_SEQ
+    log(f"[cp] {smi}: {DENSE} prefill over {CP_SHARDS} shards, "
+        f"{DENSE_REQUESTS} requests of {DENSE_BATCH} x {DENSE_SEQ} tokens: "
+        f"wall {', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{', '.join(f'{tokens_req / w:.0f}' for w in walls)} tokens/s; "
+        f"launches {dict(shapes)} ({sum(per_request.values())} a request)")
+    prof_wall, split, _, rest, busy, _ = profiled_call(
+        lambda: pre.fn(params, req["last"]))
+    check(split["flash_attention"] > 0,
+          "the profiler saw no flash_attention in a cp prefill")
+    warm = min(walls[1:])
+    log(f"[cp] {smi}: profiled cp prefill of {DENSE_BATCH} x {DENSE_SEQ}: "
+        f"wall {prof_wall:.4f} s (warm unprofiled {warm:.4f} s); device "
+        f"time {ms_list(split)} (flash_attention "
+        f"{split['flash_attention'] / 1e3 / warm:.1%} of the warm wall); "
+        f"compute stream busy {busy:.3f} ms, idle "
+        f"{1 - busy / 1e3 / prof_wall:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / warm:.1%} of the warm wall)")
+    log(f"[cp] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.3f} ms" for k, v in rest.most_common(8)))
+    del req
+
+    # (c) each shard's key: against its plain version and timed, and its
+    # rows against the whole call's
+    whole_key = flash_key(cfg, DENSE_BATCH, DENSE_SEQ)[1]
+    b_, sq, sk, hq, hkv, hd = whole_key[:6]
+    q = torch.randn((b_, sq, hq, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b_, sk, hkv, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    whole = flash_attention(q, k, v, causal=True)
+    s_loc = DENSE_SEQ // CP_SHARDS
+    for i in range(CP_SHARDS):
+        rows = slice(i * s_loc, (i + 1) * s_loc)
+        part = flash_attention(q[:, rows], k, v, causal=True,
+                               q_offset=i * s_loc)
+        torch.cuda.synchronize()
+        check(torch.equal(part, whole[:, rows]),
+              f"cp shard {i}: the kernel at offset {i * s_loc} differs from "
+              f"rows {rows.start}-{rows.stop - 1} of the whole call")
+    del q, k, v, whole, part
+    shard_ms = 0.0
+    for key in sorted(per_request, key=lambda s_: s_[1][8]):
+        measure(key)
+        r = measured[key]
+        shard_ms += r["device_ms"]
+        flops = shape_work(*key)[0]
+        log(f"[cp] {smi}: flash_attention {key[1]}: device time "
+            f"{r['device_ms']:.4f} ms a call, "
+            f"{flops / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['device_ms']:.1%} of its "
+            f"{r['bound_ms']:.4f} ms bound ({r['bound_by']}); one call "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bf16 SDPA over "
+            f"the shifted causal mask {r['library_device_ms']:.4f} ms "
+            f"({r['device_ms'] / r['library_device_ms']:.2f}x)")
+    whole_r = measured.get(("flash_attention", whole_key))
+    log(f"[cp] {smi}: the {CP_SHARDS} shard calls' rows bit for bit the whole "
+        f"call's; together {shard_ms:.4f} ms of device time"
+        + (f", {shard_ms / whole_r['device_ms']:.3f}x the whole call's "
+           f"{whole_r['device_ms']:.4f} ms" if whole_r else "")
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes, "walls": walls, "logit_err": err,
+            "logit_rel": rel}
 
 
 def ms_list(split: dict) -> str:
@@ -1727,26 +1884,13 @@ def encdec_phase(dev, env, smi: str) -> dict:
 # phase 9: training
 # ---------------------------------------------------------------------------
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs attention sees under its masks."""
-    total = 0
-    for q in range(sq):
-        lo, hi = 0, sk - 1
-        if causal:
-            hi = min(hi, q)
-        if window:
-            lo = max(lo, q - window + 1)
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def bwd_work(key) -> tuple:
     """(FLOPs, bytes) of one ``flash_attention_bwd`` call at the forward's
     key: 2.5 times the forward's operations on the visible pairs (dS, dQ,
     dK, dV beside the recomputed S: the bound's count, which the kernel's
     seven products exceed), q, k, v, o, dO read once, dq, dk, dv written
     once and the f32 lse read once."""
-    b, sq, sk, hq, hkv, hd, causal, window, dt = key
+    b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
     pairs = visible_pairs(sq, sk, causal, window)
     return 2.5 * 4.0 * hd * pairs * hq * b, float(dt.itemsize) * b * hd * (
         4 * sq * hq + 4 * sk * hkv) + 4.0 * b * hq * sq
@@ -1765,7 +1909,7 @@ def measure_bwd(key, peaks) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import forward_with_lse
-    b, sq, sk, hq, hkv, hd, causal, window, dt = key
+    b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + hq + hd)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for shape in ((b, sq, hq, hd), (b, sk, hkv, hd),
@@ -2969,6 +3113,29 @@ def main() -> int:
                 else:
                     fa_bf16_worst = max(fa_bf16_worst, close_bf16_attention(
                         got, want, what), key=lambda r: r[2])
+    # a chunk of queries at an offset into the keys of the whole sequence
+    # (context-parallel prefill; a ragged chunk among them), causal, with
+    # and without a window: (B, Sq, Sk, Hq, Hkv, hd, q_offset)
+    sweep_off = [(2, 128, 512, 4, 2, 64, 384), (1, 100, 300, 4, 2, 128, 200),
+                 (2, 256, 1024, 8, 1, 128, 256), (1, 64, 192, 2, 1, 16, 64)]
+    for (b_, sq, sk, hq, hkv, hd, off) in sweep_off:
+        for window in (0, 64):
+            for dt in (torch.float32, torch.bfloat16):
+                q = rnd(b_, sq, hq, hd, dtype=dt)
+                k = rnd(b_, sk, hkv, hd, dtype=dt)
+                v = rnd(b_, sk, hkv, hd, dtype=dt)
+                got = flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=off)
+                torch.cuda.synchronize()
+                want = ref.flash_attention_ref(q, k, v, causal=True,
+                                               window=window, q_offset=off)
+                what = (f"flash_attention {(b_, sq, sk, hq, hkv, hd)} "
+                        f"q_offset={off} window={window} {dt}")
+                if dt == torch.float32:
+                    close(got, want, 2e-5, 0.0, what)
+                else:
+                    fa_bf16_worst = max(fa_bf16_worst, close_bf16_attention(
+                        got, want, what), key=lambda r: r[2])
     # a row of C alone equals the same row inside 300 (one K order, the
     # plan from N and K only), with and without a split of K
     for (k, n) in ((768, 3072), (3072, 768), (2048, 2048)):
@@ -2978,7 +3145,8 @@ def main() -> int:
         check(torch.equal(full[17:18], part), f"streamed_matmul row 17 of "
               f"300 differs from the row alone at K={k} N={n}")
     log(f"[kernels] sweep ok: {len(sweep_mm) * 2} matmul and "
-        f"{len(sweep_fa) * 6} attention cases, f32 and bf16 (bf16 at "
+        f"{len(sweep_fa) * 6} attention cases and {len(sweep_off) * 4} at a "
+        f"query offset, f32 and bf16 (bf16 at "
         f"worst {fa_bf16_worst[2]:.3f}x its one-ulp limit, max abs err "
         f"{fa_bf16_worst[0]:.3e}, relative L2 {fa_bf16_worst[1]:.3e} <= "
         f"{BF16_ATTN_REL_L2}); matmul rows "
@@ -3029,19 +3197,26 @@ def main() -> int:
             regs = entry_usage(kn, "matmul_kernelIfLi0E")
             plan = f"splits {tile_for(n, k)}, "
         else:
-            b_, sq, sk, hq, hkv, hd, causal, window, dt = key
+            b_, sq, sk, hq, hkv, hd, causal, window, off, dt = key
             check(window == 0,
                   f"the SDPA yardstick takes no window, got {key}")
             q, k, v = rnd(b_, sq, hq, hd, dtype=dt), \
                 rnd(b_, sk, hkv, hd, dtype=dt), rnd(b_, sk, hkv, hd, dtype=dt)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             kern = lambda: flash_attention(q, k, v, causal=causal,
-                                           window=window)
-            plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                                    window=window)
+                                           window=window, q_offset=off)
+            plain = lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, q_offset=off)
             atol, rtol = 2e-5, 0.0          # f32; bf16 in ULP form below
             gqa = {"enable_gqa": True} if hq != hkv else {}
-            library = lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)
+            if off and causal:
+                # SDPA's causal mask starts at key 0 for query 0: a chunk
+                # at an offset takes the shifted mask as a boolean
+                mask = (torch.arange(sk, device=dev)[None, :]
+                        <= torch.arange(sq, device=dev)[:, None] + off)
+                library = lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa)
+            else:
+                library = lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)
             # f32 runs the FMA kernel, bf16 the tensor-core kernel, whose
             # bound is the tensor cores' (bound_ms below)
             regs = entry_usage(kn, f"flash_kernelIfLi{hd}E"
@@ -3835,6 +4010,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the threads the earlier phases left alive (loader, prefetch and
+    # replan threads of their engines), should a later fault need them
+    log(f"[dense] threads alive: "
+        f"{sorted(t.name for t in threading.enumerate())}")
     dpre = model.make_step_bundle(darch, ShapeConfig(
         "prefill", DENSE_SEQ, DENSE_BATCH, "prefill"), env)
     dgen = torch.Generator(device=dev).manual_seed(4)
@@ -3941,7 +4120,13 @@ def main() -> int:
         f"({widen_ms * dcfg.num_layers:.3f} ms over {dcfg.num_layers} "
         f"layers); max_memory_allocated {dense_mem / 1e6:.1f} MB; the "
         f"phase took {time.perf_counter() - t_dense:.1f} s")
-    del dparams, d, cache, dpre
+    del d, cache
+
+    # ---- 7f. Yi-6B prefill over CP_SHARDS sequence shards (context
+    # parallelism on one card), on 7b's weights -------------------------
+    cp_out = cp_phase(dev, env, smi, darch, dparams, dgen, measure, measured)
+    cp_shapes = cp_out["shapes"]
+    del dparams, dpre
 
     # ---- 7c. Qwen3-30B-A3B through the model path (the MoE family) -------
     moe_out = moe_phase(dev, env, smi)
@@ -4091,14 +4276,15 @@ def main() -> int:
     # ---- 10. summary ------------------------------------------------------
     # each kernel's launches by shape on its path: serving (phase 5), the
     # fleet (phase 6b), the Mamba-2 prefill requests (phase 7), the Yi-6B
-    # prefill requests (phase 7b), the Qwen3-30B-A3B prefill requests
+    # prefill requests (phase 7b) and its context-parallel ones (phase 7f),
+    # the Qwen3-30B-A3B prefill requests
     # (phase 7c), the Jamba prefill requests (phase 7d), the Whisper-small
     # prefill requests (phase 7e), the pack pass (phase 8), the Yi-6B
     # train steps, the Whisper-small one, the Mamba-2-130M ones, the
     # Qwen3-30B-A3B ones and the Jamba ones (phase 9)
     path_counts = serve_shapes + fleet_shapes + mamba_shapes + \
-        dense_shapes + moe_shapes + hybrid_shapes + encdec_shapes + \
-        pack_shapes + train_shapes
+        dense_shapes + cp_shapes + moe_shapes + hybrid_shapes + \
+        encdec_shapes + pack_shapes + train_shapes
     kernels = []
     for kn in SOURCES:
         # each shape's numbers weighted by its launches counted on the path
@@ -4149,7 +4335,10 @@ def main() -> int:
         f"{fleet_err:.2e}; Mamba-2 prefill "
         f"vs plain {prefill_err:.2e}, decode vs prefill {consist_err:.2e}; "
         f"Yi-6B prefill vs plain {dense_plain_err:.2e}, decode vs prefill "
-        f"{dense_consist_err:.2e}; Qwen3-30B-A3B prefill vs plain "
+        f"{dense_consist_err:.2e}, prefill over {CP_SHARDS} shards vs the "
+        f"ordinary prefill {cp_out['logit_err']:.2e} (requests "
+        f"{', '.join(f'{w:.4f}' for w in cp_out['walls'])} s); "
+        f"Qwen3-30B-A3B prefill vs plain "
         f"{moe_out['plain_err']:.2e}, decode vs prefill "
         f"{moe_out['consist_err']:.2e}, MoE block gather vs dense "
         f"{moe_out['block_err']:.2e}; Jamba (16 layers) prefill vs plain "

@@ -38,7 +38,7 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``cuda:0`` by default; raises when CUDA is absent unless the caller
-    passed ``"cpu"``."""
+    passed ``"cpu"`` (or ``"meta"``, on which a dry run computes nothing)."""
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -47,7 +47,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch versions")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -1,7 +1,10 @@
 // flash_attention: fused online-softmax attention, causal and/or sliding
 // window, GQA (kv head = q head / (Hq / Hkv)), f32 math, output in q's
 // dtype (f32 or bf16). q [B,Sq,Hq,hd], k and v [B,Sk,Hkv,hd], contiguous;
-// hd in {16, 32, 64, 128}. Two kernels behind one entry point: f32 runs
+// hd in {16, 32, 64, 128}. Query row i sits at absolute position
+// i + q_off in both masks (a chunk of a longer sequence whose k and v
+// cover it: context-parallel prefill; 0 otherwise), and key j at j.
+// Two kernels behind one entry point: f32 runs
 // on the FMA units (flash_kernel), bf16 on the tensor cores
 // (tc::flash_tc_kernel). Both write, when given an lse pointer, each
 // row's log-sum-exp of the scaled and masked scores (f32 [B,Hq,Sq]), the
@@ -152,11 +155,11 @@ __device__ __forceinline__ void load_rows(float* dst,
   }
 }
 
-// whether any (query, key) pair of the query tile at q0 and the KV tile
-// at k0 is visible
-__device__ __forceinline__ bool tile_visible(int q0, int k0, int bkv,
+// whether any (query, key) pair of the query tile at absolute position
+// qa and the KV tile at k0 is visible
+__device__ __forceinline__ bool tile_visible(int qa, int k0, int bkv,
                                              int causal, int window) {
-  const int rel = q0 - k0;
+  const int rel = qa - k0;
   bool vis = true;
   if (causal) vis = rel + BQ - 1 >= 0;
   if (window) vis = vis && (rel - (bkv - 1) < window);
@@ -165,13 +168,15 @@ __device__ __forceinline__ bool tile_visible(int q0, int k0, int bkv,
 
 // One block per (batch*head, query tile): block x takes query tile x / nbh
 // (counted from the last when causal, so the heaviest tiles of every head
-// launch first) of batch*head x % nbh.
+// launch first) of batch*head x % nbh. A query offset shifts every tile's
+// causal run by the same number of keys, so the last tile stays the
+// heaviest; under a window every tile sees at most window keys.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
              float* __restrict__ lse, int sq, int sk, int hq, int hkv,
-             int causal, int window, float scale, int nbh) {
+             int causal, int window, int q_off, float scale, int nbh) {
   constexpr int BKV = kv_tile<HD>();
   constexpr int QS = HD + 4;            // row stride of the Q, K, V tiles
   constexpr int PS = BKV + 8;           // row stride of a warp's P rows
@@ -192,6 +197,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh % hq;
   const int kvh = h / (hq / hkv);
   const int q0 = qt * BQ;
+  const int qa0 = q0 + q_off;  // the tile's first absolute position
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tx = lane & 7;   // keys tx + 8 j; output group lane
   const int ty = lane >> 3;  // rows ty + 4 i of the warp's 16
@@ -206,7 +212,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nkt = (sk + BKV - 1) / BKV;
   int first = nkt, last = -1;
   for (int kt = 0; kt < nkt; ++kt)
-    if (tile_visible(q0, kt * BKV, BKV, causal, window)) {
+    if (tile_visible(qa0, kt * BKV, BKV, causal, window)) {
       first = min(first, kt);
       last = kt;
     }
@@ -281,11 +287,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // mask (only where the tile is cut), online softmax, P -> the warp's
     // rows of shared memory
     bool full = kn == BKV;
-    if (causal) full = full && k0 + BKV - 1 <= q0;
-    if (window) full = full && q0 + BQ - 1 - k0 < window;
+    if (causal) full = full && k0 + BKV - 1 <= qa0;
+    if (window) full = full && qa0 + BQ - 1 - k0 < window;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + wrow + 4 * i;
+      const int qi = qa0 + wrow + 4 * i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -396,7 +402,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int sk, int hq, int hkv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int q_off, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
@@ -410,27 +416,28 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_kernel<T, HD><<<items, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hq, hkv,
-      causal, window, scale, b * hq);
+      causal, window, q_off, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int b, int sq, int sk, int hq, int hkv, int hd,
-             int causal, int window, float scale, cudaStream_t s) {
+             int causal, int window, int q_off, float scale,
+             cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
-                           window, scale, s);
+                           window, q_off, scale, s);
     case 32:
       return launch<T, 32>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
-                           window, scale, s);
+                           window, q_off, scale, s);
     case 64:
       return launch<T, 64>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
-                           window, scale, s);
+                           window, q_off, scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal,
-                            window, scale, s);
+                            window, q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -705,8 +712,8 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// whether any (query, key) pair of `rows` queries from qa and the KV tile
-// at k0 is visible
+// whether any (query, key) pair of `rows` queries from absolute position
+// qa and the KV tile at k0 is visible
 __device__ __forceinline__ bool visible(int qa, int rows, int k0, int causal,
                                         int window) {
   bool vis = true;
@@ -716,7 +723,9 @@ __device__ __forceinline__ bool visible(int qa, int rows, int k0, int causal,
 }
 
 // One block per (batch*head, 128-query tile), in the order of the f32
-// kernel (heaviest causal tiles first). Warpgroup w owns queries
+// kernel (heaviest causal tiles first; a query offset moves every tile's
+// causal run by the same number of keys, so the last stays the
+// heaviest). Warpgroup w owns queries
 // q0 + 64 w .. + 63; a thread owns rows r0 and r0 + 8 of them and, in each
 // 8 columns of S or O, columns t2 and t2 + 1 (wgmma's accumulator layout).
 template <int HD>
@@ -726,7 +735,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int sq, int sk, int hq, int hkv, int causal, int window,
-                float scale, int nbh) {
+                int q_off, float scale, int nbh) {
   constexpr int HDP = padded(HD);
   constexpr int QB = BQ * HDP * 2;   // bytes of the Q tile
   constexpr int KB = BKV * HDP * 2;  // bytes of one K or V tile
@@ -750,6 +759,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = ((wl >> 5) << 4) + ((wl & 31) >> 2);
   const int t2 = (wl & 3) * 2;
   const int qw = q0 + 64 * wg;  // the warpgroup's first query
+  const int qwa = qw + q_off;   // and its absolute position
 
   const size_t q_stride = (size_t)hq * HD;
   const size_t kv_stride = (size_t)hkv * HD;
@@ -762,7 +772,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int nkt = (sk + BKV - 1) / BKV;
   int first = nkt, last = -1;
   for (int kt = 0; kt < nkt; ++kt)
-    if (visible(q0, BQ, kt * BKV, causal, window)) {
+    if (visible(q0 + q_off, BQ, kt * BKV, causal, window)) {
       first = min(first, kt);
       last = kt;
     }
@@ -849,8 +859,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // visible key.
     const int kn = min(BKV, sk - k0);
     bool full = kn == BKV;
-    if (causal) full = full && k0 + BKV - 1 <= qw;
-    if (window) full = full && qw + 63 - k0 < window;
+    if (causal) full = full && k0 + BKV - 1 <= qwa;
+    if (window) full = full && qwa + 63 - k0 < window;
     // P goes to registers of its own: s, the product's accumulators, is
     // not written while P V is in flight
     float pf[BKV / 2];
@@ -867,7 +877,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = 8 * j + t2 + (e & 1);
-          const int qi = qw + r0 + 8 * (e >> 1);
+          const int qi = qwa + r0 + 8 * (e >> 1);
           bool vis = true;
           if (causal) vis = qi >= k0 + kj;
           if (window) vis = vis && (qi - k0 - kj < window);
@@ -981,7 +991,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int sk, int hq, int hkv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int q_off, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
@@ -996,26 +1006,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, sq, sk, hq, hkv, causal, window, scale, b * hq);
+      lse, sq, sk, hq, hkv, causal, window, q_off, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int b, int sq, int sk, int hq, int hkv, int hd, int causal,
-             int window, float scale, cudaStream_t s) {
+             int window, int q_off, float scale, cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
-                        scale, s);
+                        q_off, scale, s);
     case 32:
       return launch<32>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
-                        scale, s);
+                        q_off, scale, s);
     case 64:
       return launch<64>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
-                        scale, s);
+                        q_off, scale, s);
     case 128:
       return launch<128>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window,
-                         scale, s);
+                         q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1025,22 +1035,23 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and o start on 16-byte
-// boundaries. lse is null, or f32 [B, Hq, Sq] that takes each row's
+// boundaries. q_off >= 0 is the absolute position of query row 0 in the
+// masks. lse is null, or f32 [B, Hq, Sq] that takes each row's
 // log-sum-exp of the scaled and masked scores (the backward's input).
 // Returns a CUDA error code (0 = none).
 extern "C" int fm_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int b, int sq, int sk,
                                   int hq, int hkv, int hd, int causal,
-                                  int window, float scale, int dtype,
-                                  void* stream) {
+                                  int window, int q_off, float scale,
+                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (sk <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (sk <= 0 || hkv <= 0 || hq % hkv != 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, l, b, sq, sk, hq, hkv, hd, causal,
-                           window, scale, s);
+                           window, q_off, scale, s);
   return tc::dispatch(q, k, v, o, l, b, sq, sk, hq, hkv, hd, causal, window,
-                      scale, s);
+                      q_off, scale, s);
 }

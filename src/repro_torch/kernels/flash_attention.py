@@ -34,13 +34,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.ref import flash_attention_ref as plain
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 # kernel launches since the last reset, by (B, Sq, Sk, Hq, Hkv, hd, causal,
-# window, dtype)
+# window, q_offset, dtype)
 launches: Counter = Counter()
 
 
@@ -51,21 +51,23 @@ def _entry():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """Launch the kernel: q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] on one CUDA
     device, one dtype (f32 or bf16), Hq a multiple of Hkv, hd in
-    ``HEAD_DIMS``. Returns [B,Sq,Hq,hd] in q's dtype."""
-    return _launch(q, k, v, causal, window, with_lse=False)[0]
+    ``HEAD_DIMS``. Query row i is at position i + ``q_offset`` (>= 0) in
+    the causal and window masks. Returns [B,Sq,Hq,hd] in q's dtype."""
+    return _launch(q, k, v, causal, window, q_offset, with_lse=False)[0]
 
 
 def forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, window: int = 0):
     """``flash_attention`` that also returns each row's log-sum-exp of the
     scaled and masked scores, f32 [B,Hq,Sq], as the backward takes it."""
-    return _launch(q, k, v, causal, window, with_lse=True)
+    return _launch(q, k, v, causal, window, 0, with_lse=True)
 
 
-def _launch(q, k, v, causal, window, *, with_lse):
+def _launch(q, k, v, causal, window, q_offset, *, with_lse):
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
         raise ValueError("flash_attention needs q, k and v on one CUDA "
@@ -82,6 +84,9 @@ def _launch(q, k, v, causal, window, *, with_lse):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes f32 or bf16 of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash_attention takes an int q_offset >= 0, got "
+                         f"{q_offset!r}")
     # contiguous, starting on a 16-byte boundary (the kernel's copies)
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
@@ -94,20 +99,27 @@ def _launch(q, k, v, causal, window, *, with_lse):
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, hd,
-        int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        int(bool(causal)), int(window), q_offset, 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
-    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window),
+    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window), q_offset,
               q.dtype)] += 1
     return o, lse
 
 
 class FlashAttention(torch.autograd.Function):
     """The kernel with its gradient: forward ``forward_with_lse``,
-    backward ``flash_attention_bwd`` (dq, dk, dv in the inputs' dtype)."""
+    backward ``flash_attention_bwd`` (dq, dk, dv in the inputs' dtype).
+    The backward kernel takes no query offset, so a nonzero ``q_offset``
+    raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int = 0):
+        if q_offset:
+            raise NotImplementedError(
+                f"q_offset={q_offset}: the flash_attention backward takes "
+                f"no query offset yet (ROADMAP.md §2); context-parallel "
+                f"prefill (ROADMAP.md §1) runs the forward only")
         o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
@@ -119,7 +131,7 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
                                          window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 __all__ = ["flash_attention", "forward_with_lse", "FlashAttention", "plain",

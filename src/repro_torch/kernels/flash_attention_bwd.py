@@ -29,7 +29,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 # launches since the last reset, by the forward's key (B, Sq, Sk, Hq, Hkv,
-# hd, causal, window, dtype); one call is three CUDA launches
+# hd, causal, window, q_offset, dtype), q_offset always 0 (the backward
+# takes no offset); one call is three CUDA launches
 launches: Counter = Counter()
 
 
@@ -87,7 +88,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention_bwd", err)
-    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window),
+    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window), 0,
               q.dtype)] += 1
     return dq, dk, dv
 

@@ -1,8 +1,10 @@
 """Dispatch to the kernels by the device of the tensors they are given.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
-a CPU tensor goes to the kernel's plain PyTorch version. There is no
-fallback from one to the other. Each kernel module counts its launches
+a CPU tensor goes to the kernel's plain PyTorch version, and so does a
+``meta`` tensor, on which it computes nothing (the dry run counts the
+FLOPs of a step that way, ``launch/dryrun.py``). There is no fallback from
+one to the other. Each kernel module counts its launches
 (``launch_counts``), so a run can show that it went through the kernels.
 
 Where autograd needs a gradient (grad mode on and an input that requires
@@ -32,25 +34,34 @@ KERNELS = {"streamed_matmul": _mm, "flash_attention": _fa,
            "ssd_scan_bwd": _ssdb, "layout_pack": _pack}
 
 
+# devices whose tensors take the plain versions
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B, f32 accumulation, in A's dtype."""
-    if a.device.type == "cpu":
+    if a.device.type in _PLAIN_DEVICES:
         return ref.matmul_ref(a, b)
     return _mm.streamed_matmul(a, b)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd]."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+              causal: bool = True, window: int = 0,
+              q_offset: int = 0) -> torch.Tensor:
+    """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd]; query row i at
+    position i + ``q_offset`` in the masks."""
+    if q.device.type in _PLAIN_DEVICES:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
     if _needs_grad(q, k, v):
-        return _fa.FlashAttention.apply(q, k, v, bool(causal), int(window))
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return _fa.FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                        q_offset)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -59,7 +70,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """Mamba-2 SSD scan. x [B,S,H,P], dt [B,S,H], a/d_skip [H], b/c
     [B,S,N] -> y [B,S,H,P] f32. The plain version is the sequential
     recurrence, which needs no chunk."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return ref.ssd_ref(x, dt, a, b, c, d_skip)
     if _needs_grad(x, dt, a, b, c, d_skip):
         return _ssd.ssd_scan_with_grad(x, dt, a, b, c, d_skip, chunk=chunk)
@@ -69,7 +80,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def pack(w: torch.Tensor, *, tile=None) -> torch.Tensor:
     """[R, C] -> [R/tr, C/tc, tr, tc], zero-padded; ``native_tile`` of
     w's dtype by default."""
-    if w.device.type == "cpu":
+    if w.device.type in _PLAIN_DEVICES:
         return ref.layout_pack_ref(w, tile or native_tile(w.dtype))
     return _pack.layout_pack(w, tile)
 
@@ -84,7 +95,8 @@ def launch_counts() -> Dict[str, int]:
 def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
-    window, dtype) for ``flash_attention`` and ``flash_attention_bwd``,
+    window, q_offset, dtype) for ``flash_attention`` and
+    ``flash_attention_bwd`` (whose q_offset is always 0),
     (B, S, H, P, N, Q) for ``ssd_scan`` and ``ssd_scan_bwd`` and (R, C,
     tr, tc, dtype) for ``layout_pack``. The dtype keeps an f32 launch
     apart from a bf16 one of the same shape."""

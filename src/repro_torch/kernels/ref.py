@@ -18,17 +18,18 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
     """q: [B,Sq,Hq,hd]; k/v: [B,Sk,Hkv,hd] (fewer kv heads -> GQA repeat).
-    Returns [B,Sq,Hq,hd] in q's dtype."""
+    Query row i is at position i + ``q_offset`` in the causal and window
+    masks. Returns [B,Sq,Hq,hd] in q's dtype."""
     sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
     sk, hkv = k.shape[1], k.shape[2]
     if hq != hkv:
         k = torch.repeat_interleave(k, hq // hkv, dim=2)
         v = torch.repeat_interleave(v, hq // hkv, dim=2)
     s = torch.einsum("bqhd,bphd->bhqp", q.float(), k.float()) / math.sqrt(hd)
-    qp = torch.arange(sq, device=q.device)[:, None]
+    qp = torch.arange(sq, device=q.device)[:, None] + q_offset
     kp = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -13,8 +13,9 @@ the function unchanged, and the kernel skips hidden tiles by itself, so
 the port has neither: it computes the function through
 ``kernels.ops.attention``, the CUDA kernel on a CUDA tensor and
 ``flash_attention_ref`` on a CPU one. ``full_attention`` is that plain
-version. A nonzero ``q_offset`` (a query chunk of a sequence sharded
-across devices) raises until the mesh slice.
+version. ``q_offset`` places a query chunk at its absolute position in
+the sequence, as context-parallel prefill (``models.context_parallel``)
+passes it; both kernels take it.
 
 ``decode_attention`` is plain PyTorch, as the JAX package computes it in
 jnp outside any Pallas kernel, so it has no kernel to port. It keeps that
@@ -102,14 +103,18 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       q_offset=0) -> torch.Tensor:
     """q: [B,Sq,Hq,hd], k/v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
-    A ``q_offset`` other than 0 needs context parallelism across
-    devices."""
-    if not isinstance(q_offset, int) or q_offset:
-        raise NotImplementedError(
-            f"q_offset={q_offset!r}: a query chunk of a sequence sharded "
-            f"across devices waits for the mesh slice (ROADMAP.md §1, "
-            f"\"Mesh and analysis\"); one device runs with q_offset=0")
-    return ops.attention(q, k, v, causal=causal, window=window)
+
+    ``q_offset`` (an int, or a 0-d integer tensor read once on the host;
+    context-parallel prefill passes shard index * S_local) shifts the
+    causal/window masks when q is a chunk of a longer sequence whose kv
+    covers the full range."""
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.dim() or q_offset.is_floating_point():
+            raise ValueError(f"q_offset must be an int or a 0-d integer "
+                             f"tensor, got {q_offset!r}")
+        q_offset = int(q_offset.item())
+    return ops.attention(q, k, v, causal=causal, window=window,
+                         q_offset=int(q_offset))
 
 
 # reference unblocked attention (small shapes / oracles)

@@ -5,9 +5,10 @@ The JAX package's ``repro.models.model`` for the ``prefill`` and ``decode``
 kinds of the SSM, dense, MoE and hybrid families (``transformer``) and of
 the enc-dec family (``encdec``), and for the ``train`` kind of every
 family (``training.trainer.make_train_step``; an MoE block through the
-differentiable dispatch and combine of ``models.moe``).
-``lower_step`` is the dry-run's XLA lowering and waits with
-``launch/dryrun.py``. ``params_from_numpy`` carries a JAX parameter tree
+differentiable dispatch and combine of ``models.moe``). The JAX
+package's ``lower_step`` is its dry run's XLA lowering; the port's dry run
+(``launch/dryrun.py``) traces the bundle's function on the ``meta``
+device instead. ``params_from_numpy`` carries a JAX parameter tree
 (or decode cache, or optimizer state), mapped through ``np.asarray``, into
 the port's tensors with the same dtypes.
 """
@@ -24,6 +25,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import MeshEnv, ParamSpec
 from repro_torch.models import encdec, transformer
+from repro_torch.models.context_parallel import cp_prefill
 from repro_torch.training.optimizer import OptConfig, opt_state_specs
 from repro_torch.training.trainer import make_train_step
 
@@ -96,7 +98,8 @@ class StepBundle:
 
 def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
                      opt_cfg: Optional[OptConfig] = None,
-                     attn_mode: str = "paired") -> StepBundle:
+                     attn_mode: str = "paired",
+                     seq_shards: Optional[int] = None) -> StepBundle:
     """The step of ``shape.kind``. A prefill batch carries ``tokens``,
     ``embeds`` and ``positions`` for the vision stub, or ``frames`` and
     ``tokens`` for the audio stub (enc-dec); decode takes ``pos`` [B]
@@ -104,10 +107,11 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
 
     ``attn_mode`` is one of ``ATTN_MODES`` and computes the same prefill
     in each: the block-grid schedules leave the function unchanged, and
-    ``"cp"`` on one device (one model shard, the query chunk at offset 0,
-    the weight and K/V gathers identities) is the ordinary prefill. Its
-    sharding across devices waits for the mesh slice (``ROADMAP.md`` §1,
-    "Mesh and analysis").
+    ``"cp"`` routes a dense config without M-RoPE to
+    ``context_parallel.cp_prefill`` (the JAX package's rule) over
+    ``seq_shards`` sequence shards in turn, the env's model axis by
+    default (1 on one card, where it is bit for bit the ordinary
+    prefill).
 
     A train step is ``fn(params, opt_state, batch) -> (params, opt_state,
     metrics)`` (``batch_specs(train=True)``), AdamW under ``opt_cfg``
@@ -131,6 +135,11 @@ def make_step_bundle(arch: ArchConfig, shape: ShapeConfig, env: MeshEnv, *,
         if cfg.family == "encdec":
             def fn(params, batch):
                 return encdec.prefill(cfg, run, env, params, batch)
+        elif (attn_mode == "cp" and cfg.family == "dense"
+              and cfg.rope != "mrope"):
+            def fn(params, batch):
+                return cp_prefill(cfg, run, env, params, batch["tokens"],
+                                  seq_shards=seq_shards)
         else:
             def fn(params, batch):
                 return transformer.prefill(

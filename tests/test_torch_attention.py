@@ -181,16 +181,19 @@ def test_blocked_attention_matches_jax(mode, causal, window, hq, hkv, hd,
                                     window=window)), **tol)
 
 
-def test_blocked_attention_counts_no_launch_on_the_cpu_and_refuses_an_offset():
+def test_blocked_attention_counts_no_launch_on_the_cpu():
+    """On a CPU tensor, at offset 0 and at an offset given as an int or a
+    0-d tensor (which give the same rows), nothing launches."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 32, 4, 16)).astype(
         np.float32))
     ops.reset_launch_counts()
     attention.blocked_attention(q, q[:, :, :2], q[:, :, :2])
+    at_int = attention.blocked_attention(q[:, 16:], q, q, q_offset=16)
+    at_tensor = attention.blocked_attention(q[:, 16:], q, q,
+                                            q_offset=torch.tensor(16))
     assert ops.launch_counts()["flash_attention"] == 0
-    for offset in (16, torch.tensor(16)):
-        with pytest.raises(NotImplementedError, match="mesh slice"):
-            attention.blocked_attention(q, q, q, q_offset=offset)
+    assert torch.equal(at_int, at_tensor)
 
 
 # (config, cache length, per-row positions of 4 steps): RoPE from an empty

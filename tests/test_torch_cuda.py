@@ -98,6 +98,74 @@ def _bf16_attention_case(dev, b, sq, sk, hq, hkv, hd, causal, window,
     return got, want
 
 
+# a chunk of queries at an offset into the keys of the whole sequence
+# (context-parallel prefill): (B, Sq, Sk, Hq, Hkv, hd, q_offset), among
+# them a ragged chunk and a chunk that ends before the last key
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,off", [
+    (2, 64, 256, 4, 2, 64, 192), (2, 128, 256, 4, 2, 64, 64),
+    (1, 100, 300, 4, 2, 128, 200), (1, 256, 1024, 8, 1, 128, 512),
+    (2, 64, 64, 2, 1, 16, 0), (1, 96, 320, 4, 4, 32, 130)])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_kernel_at_an_offset(dev, b, sq, sk, hq, hkv, hd,
+                                             off, window, dtype):
+    """Each kernel at a query offset against its plain version, at the
+    tolerances of test_flash_attention_kernel, and the launch counted
+    under its offset."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(sq + sk + off)
+    q, k, v = (_normal(rng, s).to(dev, DTYPES[dtype])
+               for s in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["flash_attention"] == {
+        (b, sq, sk, hq, hkv, hd, True, window, off, DTYPES[dtype]): 1}
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                   q_offset=off)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if dtype == "bfloat16":
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_shard_rows_equal_the_whole_call(dev, window, dtype):
+    """Four chunks of 256 queries at offsets 0, 256, 512 and 768 against
+    the keys of all 1024 positions (context-parallel prefill's calls):
+    each chunk's rows are bit for bit the whole call's, since the offsets
+    are whole query tiles of both kernels (64 and 128 rows) and every row
+    sees the same key tiles in the same order."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(7)
+    q, k, v = (_normal(rng, s).to(dev, DTYPES[dtype])
+               for s in ((2, 1024, 8, 128), (2, 1024, 2, 128),
+                         (2, 1024, 2, 128)))
+    whole = flash_attention(q, k, v, causal=True, window=window)
+    for off in (0, 256, 512, 768):
+        part = flash_attention(q[:, off:off + 256], k, v, causal=True,
+                               window=window, q_offset=off)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, off:off + 256]), off
+
+
+def test_flash_attention_gradient_at_an_offset_raises(dev):
+    """The backward kernel takes no query offset: a call that needs a
+    gradient at a nonzero offset raises, at offset 0 it runs."""
+    rng = np.random.default_rng(3)
+    q = _normal(rng, (1, 64, 4, 64)).to(dev, torch.bfloat16).requires_grad_()
+    k, v = (_normal(rng, (1, 128, 2, 64)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.attention(q, k, v, q_offset=64)
+    ops.attention(q, k[:, :64], v[:, :64]).sum().backward()
+    assert q.grad is not None
+    with torch.no_grad():
+        ops.attention(q, k, v, q_offset=64)
+
+
 # the Yi-6B head layout at length, a ragged GQA group of 8 under every
 # mask, and more keys than queries
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", [
@@ -189,8 +257,8 @@ def test_dispatch_launches_and_counts(dev):
                                    "ssd_scan_bwd": 0, "layout_pack": 0}
     assert ops.launch_counts_by_shape() == {
         "streamed_matmul": {(64, 128, 64): 1},
-        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0, torch.float32):
-                            1},
+        "flash_attention": {(1, 64, 64, 2, 2, 64, True, 0, 0,
+                             torch.float32): 1},
         "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {},
         "layout_pack": {}}
 
@@ -597,7 +665,7 @@ def test_dense_prefill_and_decode_on_the_card(dev):
                   n_kv_heads=1, head_dim=128, d_ff=512)
     arch = ArchConfig(model=cfg)
     seq, batch = 128, 2
-    key = (batch, seq, seq, 8, 1, 128, True, 0, torch.bfloat16)
+    key = (batch, seq, seq, 8, 1, 128, True, 0, 0, torch.bfloat16)
     out = {}
     gen = torch.Generator().manual_seed(0)
     params, cache, _, _ = model.init_inputs(model.make_step_bundle(
@@ -676,7 +744,7 @@ def test_moe_prefill_and_decode_on_the_card(dev, f32):
     arch = ArchConfig(model=cfg)
     seq, batch, steps = 128, 2, 4
     dt = torch.float32 if f32 else torch.bfloat16
-    key = (batch, seq, seq, 8, 1, 128, True, 0, dt)
+    key = (batch, seq, seq, 8, 1, 128, True, 0, 0, dt)
     gen = torch.Generator().manual_seed(0)
     params, cache, _, _ = model.init_inputs(model.make_step_bundle(
         arch, ShapeConfig("d", seq, batch, "decode"),
@@ -868,9 +936,9 @@ def test_encdec_prefill_and_decode_on_the_card(dev, f32):
     cpu, card = out["cpu"], out[str(dev)]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     assert cpu[2] == {} and card[2] == {
-        (batch, t_enc, t_enc, h, h, hd, False, 0, dt): cfg.encoder_layers,
-        (batch, seq, seq, h, h, hd, True, 0, dt): cfg.num_layers,
-        (batch, seq, t_enc, h, h, hd, False, 0, dt): cfg.num_layers}
+        (batch, t_enc, t_enc, h, h, hd, False, 0, 0, dt): cfg.encoder_layers,
+        (batch, seq, seq, h, h, hd, True, 0, 0, dt): cfg.num_layers,
+        (batch, seq, t_enc, h, h, hd, False, 0, 0, dt): cfg.num_layers}
     for i in (0, 1):
         torch.testing.assert_close(card[i], cpu[i],
                                    atol=1e-3 if f32 else 0.1, rtol=0)
@@ -1045,7 +1113,7 @@ def test_attention_with_grad_launches_both_kernels(dev):
     out = ops.attention(q, k, v)
     out.backward(do)
     torch.cuda.synchronize()
-    key = (2, 64, 64, 4, 2, 64, True, 0, torch.bfloat16)
+    key = (2, 64, 64, 4, 2, 64, True, 0, 0, torch.bfloat16)
     assert ops.launch_counts_by_shape()["flash_attention"] == {key: 1}
     assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {key: 1}
     _grads_close((q.grad, k.grad, v.grad),

@@ -37,6 +37,20 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(MODULES) > 30
 
 
+def test_every_module_of_the_port_is_covered():
+    """The modules the JAX package has are all in the port and among those
+    the import test loads, context parallelism, analysis and the dry run
+    included."""
+    ref = sorted(
+        ".".join(p.relative_to(SRC / "repro").with_suffix("").parts)
+        .replace(".__init__", "") for p in (SRC / "repro").rglob("*.py"))
+    port = {m.removeprefix("repro_torch.") for m in MODULES}
+    assert [m for m in ref if m not in port] == []
+    for m in ("models.context_parallel", "launch.dryrun",
+              "analysis.hlo_parse", "analysis.roofline", "analysis.report"):
+        assert f"repro_torch.{m}" in MODULES
+
+
 def test_port_sources_never_name_jax_or_reference_imports():
     files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:

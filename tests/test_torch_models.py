@@ -470,13 +470,15 @@ def test_decode_from_zero_cache_matches_prefill(f32):
 
 @pytest.mark.parametrize("what", ["train", "hybrid", "encdec"])
 def test_unported_paths_raise(what):
-    """What is still unported raises, naming the roadmap: attention over a
-    query chunk at a nonzero offset (context parallelism across devices).
-    Every family's train bundle builds, the hybrid family's MoE blocks
-    included, with the parameters, the optimizer state and the batch as
-    inputs, the first two donated (tests/test_torch_training.py runs them
-    against the JAX package); prefill and decode of every family run
-    (tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
+    """What is still unported raises: a host mesh of more than one device
+    (one card runs one). Attention over a query chunk at a nonzero offset
+    runs since context parallelism was ported (tests/test_torch_cp.py
+    holds it to the JAX package). Every family's train bundle builds, the
+    hybrid family's MoE blocks included, with the parameters, the
+    optimizer state and the batch as inputs, the first two donated
+    (tests/test_torch_training.py runs them against the JAX package);
+    prefill and decode of every family run (tests/test_torch_hybrid.py,
+    tests/test_torch_encdec.py)."""
     from repro_torch.models import attention
     env = make_host_mesh(device=CPU)
     names = {"hybrid": "jamba-v0.1-52b", "encdec": "whisper-small",
@@ -484,9 +486,11 @@ def test_unported_paths_raise(what):
     cfg = get_arch(names[what]).model.reduced()
     arch = ArchConfig(model=cfg)
     q = torch.zeros((1, 8, cfg.n_heads, cfg.resolved_head_dim))
-    kv = torch.zeros((1, 8, cfg.n_kv_heads, cfg.resolved_head_dim))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.blocked_attention(q, kv, kv, q_offset=8)
+    kv = torch.zeros((1, 16, cfg.n_kv_heads, cfg.resolved_head_dim))
+    with pytest.raises(NotImplementedError, match="host mesh needs 2"):
+        make_host_mesh(1, 2, device=CPU)
+    out = attention.blocked_attention(q, kv, kv, q_offset=8)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
     bundle = tmodel.make_step_bundle(arch, ShapeConfig("x", 32, 1, "train"),
                                      env)
     assert bundle.donate == (0, 1)
@@ -498,7 +502,7 @@ def test_unported_paths_raise(what):
 
 def test_mesh_is_one_device_and_explicit():
     assert make_host_mesh(device=CPU).device == torch.device(CPU)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    with pytest.raises(NotImplementedError, match="host mesh needs 2"):
         make_host_mesh(2, 1, device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -12,12 +12,17 @@ plan said: both engines refuse puts of ``a`` and of ``a`` only, and both
 pass the budget by no more than the bytes they refused. With the plan's
 own peaks neither engine refuses a put or passes the budget. The
 prefetch thread is joined before ``a`` runs, so the pins are in place
-when its loads come; ``a``'s own loader thread still races its compute
-loop (a loaded chunk is put while compute releases earlier ones), so
-the refused puts and the peak, which also holds the loader's chunks in
-flight, move by a put or a few chunks from run to run in either engine
-when the machine is loaded. The engines are therefore held to the same
-bounds, not to each other's bytes.
+when its loads come. Each run's loader thread is held to its compute
+loop as well (``_loaders_held``): when compute lets op ``l``'s loads
+through, it waits until the loader has put them and parks at a later
+gate, so every chunk is put before the compute loop releases the weights
+that op ``l`` uses for the last time. Left to the scheduler, a loader
+that lags its compute loop (as on a loaded host) puts its chunks only
+once compute waits for them: they are assembled before the op's
+residency is read, and at ``frac=0.3`` the peak stayed under the budget
+(1101824 against 1104076 bytes in both engines) though puts were
+refused. The engines are held to the same bounds, not to each other's
+bytes.
 
 With an ``HWSpec`` that phase 5 of ``chip_smoke.py`` recorded on the
 card, the plan of these reduced models does not fit the budget itself
@@ -26,7 +31,9 @@ pair past a calibration threshold): neither engine reads
 ``fits_budget()`` before it runs the plan, and both pass the budget by no
 more than the same bound, the bytes they refused and the plan's own peak.
 """
+import threading
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import replace
 
 import numpy as np
@@ -34,11 +41,13 @@ import pytest
 
 from repro.configs.gptneo import GPTNEO_S as JAX_GPTNEO_S
 from repro.core.capacity import HWSpec as JaxHWSpec
+from repro.core import streaming as jax_streaming
 from repro.core.streaming import HostModel as JaxHostModel
 from repro.serving.engine import Request as JaxRequest
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro_torch.configs.gptneo import GPTNEO_S
 from repro_torch.core.capacity import HWSpec
+from repro_torch.core import streaming as torch_streaming
 from repro_torch.core.streaming import HostModel
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -50,6 +59,59 @@ HW = dict(peak_flops=5e10, hbm_bw=2e10, stream_bw=1e10)
 CARD_HW = dict(peak_flops=35620415632564.55, hbm_bw=2258645061038.675,
                stream_bw=45675652730.75533)
 CHUNK = 16 << 10
+
+
+class _Gate(threading.Event):
+    """A loader gate that tells its loader's compute loop when the loader
+    waits at it."""
+
+    def __init__(self, loader, op_index):
+        super().__init__()
+        self.loader, self.op_index = loader, op_index
+
+    def wait(self, timeout=None):
+        with self.loader.parked:
+            self.loader.parked_at = self.op_index
+            self.loader.parked.notify_all()
+        return super().wait(timeout)
+
+
+@contextmanager
+def _loaders_held():
+    """Both packages' ``_Loader``s, with each gate's loads put before the
+    compute loop runs the op that let them through."""
+    saved = []
+    for mod in (jax_streaming, torch_streaming):
+        cls = mod._Loader
+        saved.append((cls, cls.start, cls.run, cls.allow_through))
+
+        def start(self, _start=cls.start):
+            self.parked = threading.Condition()
+            self.parked_at = -1
+            self.gate = {l: _Gate(self, l) for l in self.gate}
+            _start(self)
+
+        def run(self, _run=cls.run):
+            try:
+                _run(self)
+            finally:
+                with self.parked:
+                    self.parked_at = float("inf")
+                    self.parked.notify_all()
+
+        def allow_through(self, op_index, _allow=cls.allow_through):
+            _allow(self, op_index)
+            if op_index in self.gate:
+                with self.parked:
+                    assert self.parked.wait_for(
+                        lambda: self.parked_at > op_index, timeout=60)
+
+        cls.start, cls.run, cls.allow_through = start, run, allow_through
+    try:
+        yield
+    finally:
+        for cls, start, run, allow in saved:
+            cls.start, cls.run, cls.allow_through = start, run, allow
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +168,8 @@ def _serve(side, models, budget, understate, hw=HW):
     for r, name in enumerate("ab"):
         eng.submit(req(model=name, req_id=r, tokens=rng.integers(
             0, SHAPE["vocab"], (1, SEQ), dtype=np.int32)))
-    eng.run_all()
+    with _loaders_held():
+        eng.run_all()
     assert eng.cache.ledger_balanced()
     return eng.peak_memory(), dict(refused), puts[0], planned, plan_peak
 

@@ -170,7 +170,7 @@ def main(argv) -> int:
     if want_digests:
         digests(fns, dev)
     for key in cs.BWD_KEYS:
-        b, sq, sk, hq, hkv, hd, causal, window, dt = key
+        b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
         gen = torch.Generator(device="cpu").manual_seed(sq + sk + hq + hd)
         q, k, v, do = (torch.randn(s, generator=gen).to(dev, dt)
                        for s in ((b, sq, hq, hd), (b, sk, hkv, hd),

@@ -4,7 +4,8 @@
 
 Builds both sources (each with the C interface of
 ``src/repro_torch/kernels/csrc/flash_attention.cu``, with or without its
-``lse`` pointer, which is passed null: the forward alone), holds each against
+``lse`` pointer, which is passed null: the forward alone, and with or
+without its ``q_off``, which is passed 0), holds each against
 ``kernels.ref.flash_attention_ref`` at the shapes below (f32 within 2e-5;
 bf16 within 2e-2, one bf16 ulp above a 1e-3 floor and 1e-2 relative L2)
 and times each shape's device time (CUDA events around 20 back-to-back
@@ -48,20 +49,28 @@ CALLS, ROUNDS = 20, 5
 
 
 def entry(lib: Path, source: str):
-    """(entry point, whether it takes the lse pointer after o)."""
+    """(entry point, whether it takes the lse pointer after o, whether it
+    takes the query offset after the window)."""
     takes_lse = "void* lse" in source
+    takes_off = "int q_off" in source
+    types = list(_ARGTYPES)       # 5 pointers, 9 ints (q_off the last)
+    if not takes_off:
+        del types[13]
+    if not takes_lse:
+        del types[4]
     fn = ctypes.CDLL(str(lib)).fm_flash_attention
-    fn.argtypes = _ARGTYPES if takes_lse else _ARGTYPES[:4] + _ARGTYPES[5:]
+    fn.argtypes = types
     fn.restype = ctypes.c_int
-    return fn, takes_lse
+    return fn, takes_lse, takes_off
 
 
 def launch(fn, q, k, v, o, causal):
-    fn, takes_lse = fn
+    fn, takes_lse, takes_off = fn
     b, sq, hq, hd = q.shape
     lse = (0,) if takes_lse else ()
+    off = (0,) if takes_off else ()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *lse, b,
-             sq, k.shape[1], hq, k.shape[2], hd, int(causal), 0,
+             sq, k.shape[1], hq, k.shape[2], hd, int(causal), 0, *off,
              1.0 / math.sqrt(hd), _DTYPES[q.dtype],
              torch.cuda.current_stream().cuda_stream)
     if err:
