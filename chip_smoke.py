@@ -39,7 +39,18 @@ executors, then drives each path through the port's own entry points:
   with 128 bf16 ``flash_attention`` launches each (32 at each offset),
   one more under the profiler, and each shard's kernel against its plain
   version, bit for bit the whole call's rows, timed beside its bound and
-  bf16 SDPA over the shifted causal mask;
+  bf16 SDPA over the shifted causal mask; then (7f(d)) the gradient of a
+  seeded projection of the last-position logits through ``cp_prefill``
+  with respect to every parameter of a cut of those weights' layers
+  (sized on ``meta`` beside what the smoke holds), with exactly one
+  forward ``flash_attention`` launch a layer at each shard's offset, one
+  backward a layer at the last shard's and one in every layer but the
+  last at the others' (whose last attention reaches no last-position
+  logit), and no plain attention, against the same gradient
+  through the ordinary prefill; its wall, peak memory and a profiled
+  split; and at 2 layers and 2 x 512 over 4 seeds the cp gradient against
+  the ordinary one and against the cp gradient through the plain
+  versions;
 * the MoE model path: Qwen3-30B-A3B (full width, all 48 layers, 128
   experts top-8, bf16, random weights drawn on the card layer by layer
   from a seed) through the same entry points: prefill through the kernel
@@ -69,8 +80,9 @@ executors, then drives each path through the port's own entry points:
 * ``kernels.ops.pack`` over the weights of one GPT-Neo-1.3B layer, f32 and
   bf16 (``layout_pack``);
 * training (phase 9): the ``flash_attention`` backward kernel against
-  autograd of its plain version at every key a training path runs, a
-  window and an f32 case, two runs bit-equal; Yi-6B at full width and 16
+  autograd of its plain version at every key a training path and phase
+  7f(d) run, a window and an f32 case at offset 0 and at an offset, two
+  runs bit-equal; Yi-6B at full width and 16
   of its 32 layers (bf16, f32 AdamW moments, random weights from a seed),
   three steps of 8 x 4096 tokens from ``SyntheticLMStream`` in 4
   microbatches with remat through ``make_train_step`` (128 forward and 64
@@ -217,6 +229,24 @@ DENSE_DECODE_BATCH, DENSE_DECODE_STEPS = 8, 16
 # phase 7f: Yi-6B prefill over 4 sequence shards in turn (context
 # parallelism on one card), 1024 queries a shard at 2 x 4096
 CP_SHARDS = 4
+# phase 7f(d): the gradient through cp_prefill of a cut of 7b's layers,
+# the most layers whose gradient (two sets of parameter gradients and the
+# bytes autograd keeps for one backward, counted on meta) fits in this
+# share of the card beside what the smoke holds; its tokens and projection
+# of the last-position logits from a seed of its own
+CP_GRAD_CARD_SHARE = 0.5
+CP_GRAD_SEED = 15
+# each gradient leaf through cp_prefill against the same gradient through
+# the ordinary prefill, both through the kernels (the projections over
+# other row blocks and the shards' dk and dv summed in bf16 round at other
+# places): relative L2. On an H100 80GB HBM3 at 700 W seeds 8-11
+# (tools/cp_grad_seeds.py) read a worst leaf (always wk) of 4.59e-3 to
+# 4.63e-3 at CHECK_LAYERS x CHECK_BATCH x CHECK_SEQ and 4.70e-3 to
+# 4.76e-3 at 12 layers and 2 x 4096 (the cut beside 7b's weights alone;
+# the smoke, which holds more there, cuts 11); the check allows about
+# twice that. The cp gradient against the plain versions' read 1.06e-2 to
+# 1.15e-2 there, within TRAIN_GRAD_REL_L2
+CP_GRAD_REL_L2 = 1e-2
 # Yi-6B logits (up to about 5 with these random weights) of two runs that
 # differ in attention's f32 summation order (the kernel's online softmax
 # over 64-key tiles, P carried as two bf16 terms, vs the plain version's
@@ -306,14 +336,21 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 2e-2
 # forward's bf16 O; f32 differs in the order of sums only
 BWD_BF16_MAX, BWD_BF16_REL_L2, BWD_F32_MAX = 2e-2, 1e-2, 1e-4
 # every key a training path runs (Yi-6B and Qwen3, Jamba's GQA group of 4,
-# Whisper's three), a window and an f32 case at a small size
+# Whisper's three), a window and an f32 case at a small size; then the
+# four Yi-6B cp shard keys of phase 7f(d) (1024 queries at offsets 0-3072
+# over 4096 keys), a ragged windowed bf16 chunk at an offset that is no
+# tile multiple and an f32 chunk at an offset
 BWD_KEYS = ((2, 4096, 4096, 32, 4, 128, True, 0, 0, torch.bfloat16),
             (2, 4096, 4096, 32, 8, 128, True, 0, 0, torch.bfloat16),
             (8, 1500, 1500, 12, 12, 64, False, 0, 0, torch.bfloat16),
             (8, 448, 1500, 12, 12, 64, False, 0, 0, torch.bfloat16),
             (8, 448, 448, 12, 12, 64, True, 0, 0, torch.bfloat16),
             (2, 1000, 1000, 8, 2, 128, True, 256, 0, torch.bfloat16),
-            (1, 1024, 1024, 12, 12, 64, True, 0, 0, torch.float32))
+            (1, 1024, 1024, 12, 12, 64, True, 0, 0, torch.float32),
+            *((2, 1024, 4096, 32, 4, 128, True, 0, off, torch.bfloat16)
+              for off in (0, 1024, 2048, 3072)),
+            (2, 1000, 3000, 8, 2, 128, True, 256, 2000, torch.bfloat16),
+            (1, 512, 1536, 12, 12, 64, True, 0, 1024, torch.float32))
 # phase 9e, the SSM family: Mamba-2-130M at full width and all 24 layers
 # (about 129M parameters, 1.6 GB at 12 B a parameter), bf16 with f32 AdamW
 # moments, drawn from a seed of its own (the step check's are CHECK_SEEDS),
@@ -1309,8 +1346,10 @@ def cp_phase(dev, env, smi: str, arch, params, gen, measure,
     DENSE_BATCH x DENSE_SEQ with exactly ``cp_launches`` each and one more
     under the profiler; (c) each shard's key against its plain version,
     timed with its bound and bf16 SDPA over the shifted causal mask
-    (``measure``), and each shard's rows bit for bit the whole call's.
-    Returns the requests' launches, walls and the logits' errors."""
+    (``measure``), and each shard's rows bit for bit the whole call's; (d)
+    the gradient through ``cp_prefill`` (``cp_grad``). Returns the
+    launches of (b) and (d), the requests' walls, the logits' errors and
+    (d)'s readings."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1412,10 +1451,289 @@ def cp_phase(dev, env, smi: str, arch, params, gen, measure,
     log(f"[cp] {smi}: the {CP_SHARDS} shard calls' rows bit for bit the whole "
         f"call's; together {shard_ms:.4f} ms of device time"
         + (f", {shard_ms / whole_r['device_ms']:.3f}x the whole call's "
-           f"{whole_r['device_ms']:.4f} ms" if whole_r else "")
-        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"shapes": shapes, "walls": walls, "logit_err": err,
-            "logit_rel": rel}
+           f"{whole_r['device_ms']:.4f} ms" if whole_r else ""))
+
+    # (d) the gradient through cp_prefill
+    grad = cp_grad(dev, env, smi, arch, params)
+    log(f"[cp] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes + grad["shapes"], "walls": walls,
+            "logit_err": err, "logit_rel": rel, "grad": grad}
+
+
+class MetaFlashAttention(torch.autograd.Function):
+    """What ``kernels.flash_attention.FlashAttention`` keeps for its
+    backward (q, k, v, o and the f32 row log-sum-exp), on ``meta`` tensors:
+    the sizing's stand-in for the kernel, whose plain version would keep
+    the whole score matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o = torch.empty_like(q)
+        lse = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _, _ = ctx.saved_tensors
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def cp_grad_bytes(arch, layers: int, batch: int, seq: int,
+                  shards: int) -> tuple:
+    """(the bytes autograd keeps for the backward, the parameters' bytes) of
+    the gradient through ``cp_prefill`` of ``arch`` cut to ``layers``
+    layers at ``batch`` x ``seq`` over ``shards`` shards: the prefill
+    bundle traced on ``meta`` with the dry run's inputs
+    (``launch.dryrun.meta_inputs``), every parameter requiring a gradient,
+    each storage a saved tensor holds counted once (the parameters'
+    excluded: they are held anyway)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    cut = replace(arch, model=replace(arch.model, num_layers=layers))
+    bundle = model.make_step_bundle(
+        cut, ShapeConfig("prefill", seq, batch, "prefill"),
+        make_host_mesh(device="meta"), attn_mode="cp", seq_shards=shards)
+    params, inputs = dryrun.meta_inputs(bundle)
+    leaves = shd.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    held = {t.untyped_storage()._cdata for t in leaves}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in held:
+            saved[st._cdata] = st.nbytes()
+        return t
+    with mock.patch.object(ops, "attention", lambda q, k, v, **_:
+                           MetaFlashAttention.apply(q, k, v)), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        bundle.fn(params, inputs)
+    return sum(saved.values()), dryrun.tensor_bytes(params)
+
+
+def cp_grad_layers(arch, batch: int, seq: int, shards: int, held: int,
+                   card: int) -> tuple:
+    """(layers, the bytes they need, the budget): the most layers of
+    ``arch`` whose cp gradient (``cp_grad_bytes``: what autograd keeps for
+    one backward, and two sets of parameter gradients, the cp one and the
+    ordinary prefill's) fits in CP_GRAD_CARD_SHARE of ``card`` bytes beside
+    the ``held`` ones; from the counts at 1 and 2 layers, which grow
+    linearly."""
+    s1, p1 = cp_grad_bytes(arch, 1, batch, seq, shards)
+    s2, p2 = cp_grad_bytes(arch, 2, batch, seq, shards)
+
+    def need(n):
+        return s1 + (n - 1) * (s2 - s1) + 2 * (p1 + (n - 1) * (p2 - p1))
+    budget = CP_GRAD_CARD_SHARE * card - held
+    layers = max([n for n in range(1, arch.model.num_layers + 1)
+                  if need(n) <= budget] or [1])
+    return layers, need(layers), budget
+
+
+def cut_params(params: dict, layers: int) -> dict:
+    """The first ``layers`` layers of a stacked parameter tree, with the
+    embedding, the final norm and the head: views of ``params``, each a
+    leaf that requires a gradient."""
+    from repro_torch.distributed import sharding as shd
+    cut = dict(params)
+    cut["blocks"] = shd.tree_map(lambda t: t[:layers], params["blocks"])
+    return shd.tree_map(lambda t: t.detach().requires_grad_(), cut)
+
+
+def projected_grads(fn, params: dict, proj: torch.Tensor) -> list:
+    """The gradient of sum(logits[:, -1] * proj), ``fn(params)`` giving the
+    logits, with respect to every leaf of ``params``, in order."""
+    from repro_torch.distributed import sharding as shd
+    leaves = shd.tree_leaves(params)
+    logits = fn(params)
+    loss = (logits[:, -1, :].float() * proj).sum()
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def worst_leaf(got: list, want: list) -> tuple:
+    """(the largest relative L2 distance of a leaf, its index)."""
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(got, want)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return rel[worst], worst
+
+
+def cp_grad_check(dev, env, arch, seed: int, layers: int = CHECK_LAYERS,
+                  batch: int = CHECK_BATCH, seq: int = CHECK_SEQ,
+                  plain: bool = True) -> dict:
+    """At ``layers`` layers of ``arch`` at full width, ``batch`` x ``seq``
+    over CP_SHARDS shards, weights, tokens and projection drawn from
+    ``seed``: the worst leaf of the cp gradient through the kernels
+    against the ordinary prefill's through the kernels (``"ordinary"``)
+    and, with ``plain``, against the cp gradient through the plain
+    versions (``"plain"``), each with its leaf's path."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model, transformer
+    from repro_torch.models.context_parallel import cp_prefill
+    cfg = replace(arch.model, num_layers=layers)
+    run = ArchConfig(model=cfg).run_config("prefill")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = shd.tree_map(lambda t: t.requires_grad_(), shd.init_params(
+        model.param_specs(cfg), gen, dev))
+    tokens = prefill_batch(cfg, batch, seq, gen, dev)["tokens"]
+    proj = torch.randn(cfg.vocab, generator=gen, device=dev)
+
+    def cp(p):
+        return cp_prefill(cfg, run, env, p, tokens, seq_shards=CP_SHARDS)
+    with no_plain_attention():
+        got = projected_grads(cp, params, proj)
+        wants = {"ordinary": projected_grads(lambda p: transformer.prefill(
+            cfg, run, env, p, tokens), params, proj)}
+    if plain:
+        with mock.patch.object(ops, "attention", ref.flash_attention_ref):
+            wants["plain"] = projected_grads(cp, params, proj)
+    names = leaf_paths(params)
+    out = {}
+    for what, want in wants.items():
+        rel, i = worst_leaf(got, want)
+        out[what] = rel
+        out[f"{what}_leaf"] = names[i]
+    return out
+
+
+def cp_grad(dev, env, smi: str, arch, params: dict) -> dict:
+    """Phase 7f(d): the gradient of a seeded projection of the
+    last-position logits through ``cp_prefill`` over CP_SHARDS shards, at
+    DENSE_BATCH x DENSE_SEQ, with respect to every parameter of the first
+    layers of ``params`` (phase 7b's Yi-6B; ``cp_grad_layers`` of them):
+    exactly one forward ``flash_attention`` a layer at each shard's key,
+    one backward a layer at the last shard's and one in every layer but
+    the last at the others' (the last layer's attention of an earlier
+    shard reaches no last-position logit), and no plain attention; each
+    leaf within CP_GRAD_REL_L2 of the same gradient through the ordinary
+    prefill; two timed runs and one under the profiler (``train_split``),
+    peak memory.
+    Then at CHECK_LAYERS x CHECK_BATCH x CHECK_SEQ over CHECK_SEEDS
+    (``cp_grad_check``): the cp gradient within CP_GRAD_REL_L2 of the
+    ordinary one and within TRAIN_GRAD_REL_L2 of the cp gradient through
+    the plain versions. Returns the launches and the readings."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.context_parallel import cp_prefill
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    held = torch.cuda.memory_allocated(dev)
+    layers, need, budget = cp_grad_layers(arch, DENSE_BATCH, DENSE_SEQ,
+                                          CP_SHARDS, held, card)
+    cfg = replace(arch.model, num_layers=layers)
+    run = ArchConfig(model=cfg).run_config("prefill")
+    cut = cut_params(params, layers)
+    n_params = sum(t.numel() for t in shd.tree_leaves(cut))
+    log(f"[cp-grad] the cut: {layers} of {arch.model.num_layers} layers at "
+        f"full width ({n_params / 1e9:.3f}B parameters): on meta its "
+        f"gradient needs {need / 1e9:.2f} GB "
+        f"(what autograd keeps for one backward and two sets of parameter "
+        f"gradients) of a budget of {budget / 1e9:.2f} GB "
+        f"({CP_GRAD_CARD_SHARE:.0%} of {card / 1e9:.2f} GB less the "
+        f"{held / 1e9:.2f} GB the smoke holds)")
+    gen = torch.Generator(device=dev).manual_seed(CP_GRAD_SEED)
+    tokens = prefill_batch(cfg, DENSE_BATCH, DENSE_SEQ, gen, dev)["tokens"]
+    proj = torch.randn(cfg.vocab, generator=gen, device=dev)
+    expect = Counter()
+    last_shard = DENSE_SEQ - DENSE_SEQ // CP_SHARDS
+    for (_, key), n in cp_launches(cfg, DENSE_BATCH, DENSE_SEQ,
+                                   CP_SHARDS).items():
+        expect[("flash_attention", key)] = n
+        # the last layer's attention of a shard before the last reaches no
+        # last-position logit, so autograd runs no backward for it
+        expect[("flash_attention_bwd", key)] = \
+            n if key[8] == last_shard else n - 1
+
+    def cp(p):
+        return cp_prefill(cfg, run, env, p, tokens, seq_shards=CP_SHARDS)
+    walls, shapes = [], Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_attention():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = projected_grads(cp, cut, proj)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launched = counted()
+            check(launched == expect, f"cp gradient launched "
+                  f"{dict(launched)}, expected {dict(expect)}")
+            shapes += launched
+            del got
+        peak = torch.cuda.max_memory_allocated()
+        got = projected_grads(cp, cut, proj)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "a cp gradient leaf is not finite")
+        want = projected_grads(lambda p: transformer.prefill(
+            cfg, run, env, p, tokens), cut, proj)
+    worst, i = worst_leaf(got, want)
+    leaf = leaf_paths(cut)[i]
+    check(worst <= CP_GRAD_REL_L2, f"cp gradient {leaf}: {worst:.3e} "
+          f"relative L2 from the ordinary prefill's")
+    n_leaves = len(got)
+    del got, want
+    by_offset = {(kn, k[8]): c for (kn, k), c in sorted(expect.items(),
+                                                          key=str)}
+    log(f"[cp-grad] {smi}: {DENSE} at full width, {layers} layers, the "
+        f"gradient of a seeded projection of the last-position logits of "
+        f"{DENSE_BATCH} x {DENSE_SEQ} tokens over {CP_SHARDS} shards: wall "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s (forward and backward), "
+        f"max_memory_allocated {peak / 1e9:.2f} GB; launches a run by "
+        f"(kernel, offset) {by_offset} at {next(iter(expect))[1][:8]}, no "
+        f"plain attention; {n_leaves} leaves against the ordinary prefill's "
+        f"gradient through the kernels: the worst {worst:.3e} relative L2 "
+        f"({leaf}; bound {CP_GRAD_REL_L2})")
+    with no_plain_attention():
+        prof_wall, prof = profiled_step(lambda: projected_grads(cp, cut,
+                                                                proj))
+    split, rest, busy, idle = train_split(prof, prof_wall)
+    del prof
+    log(f"[cp-grad] {smi}: profiled run: wall {prof_wall:.4f} s; device "
+        f"time " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
+                             for k, v in split.items() if v or k == "rest")
+        + f"; busy {busy:.2f} ms, idle {idle:.1%} of the profiled wall "
+        f"({1 - busy / 1e3 / min(walls):.1%} of the faster unprofiled "
+        f"wall)")
+    log("[cp-grad] the rest by kernel: " + "; ".join(
+        f"{short_kernel_name(k)} {v:.2f} ms" for k, v in rest.most_common(6)))
+    del cut
+    torch.cuda.empty_cache()
+    readings = []
+    for seed in CHECK_SEEDS:
+        r = cp_grad_check(dev, env, arch, seed)
+        readings.append((seed, r))
+        check(r["ordinary"] <= CP_GRAD_REL_L2,
+              f"seed {seed}: cp gradient {r['ordinary_leaf']} "
+              f"{r['ordinary']:.3e} from the ordinary prefill's")
+        check(r["plain"] <= TRAIN_GRAD_REL_L2,
+              f"seed {seed}: cp gradient {r['plain_leaf']} {r['plain']:.3e} "
+              f"from the plain versions'")
+    log(f"[cp-grad] {CHECK_LAYERS} layers at full width, {CHECK_BATCH} x "
+        f"{CHECK_SEQ} over {CP_SHARDS} shards, the worst leaf of the cp "
+        f"gradient through the kernels against the ordinary prefill's "
+        f"(bound {CP_GRAD_REL_L2}) and against the cp gradient through the "
+        f"plain versions (bound {TRAIN_GRAD_REL_L2}): " + "; ".join(
+            f"seed {s_}: {r['ordinary']:.3e} ({r['ordinary_leaf']}), "
+            f"{r['plain']:.3e} ({r['plain_leaf']})" for s_, r in readings)
+        + f"; 7f(d) took {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "layers": layers, "walls": walls,
+            "worst_rel": worst, "peak_bytes": peak,
+            "split": split, "idle": idle, "readings": readings}
 
 
 def ms_list(split: dict) -> str:
@@ -1886,42 +2204,67 @@ def encdec_phase(dev, env, smi: str) -> dict:
 
 def bwd_work(key) -> tuple:
     """(FLOPs, bytes) of one ``flash_attention_bwd`` call at the forward's
-    key: 2.5 times the forward's operations on the visible pairs (dS, dQ,
-    dK, dV beside the recomputed S: the bound's count, which the kernel's
-    seven products exceed), q, k, v, o, dO read once, dq, dk, dv written
-    once and the f32 lse read once."""
-    b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
-    pairs = visible_pairs(sq, sk, causal, window)
+    key: 2.5 times the forward's operations on the visible pairs at the
+    key's query offset (dS, dQ, dK, dV beside the recomputed S: the bound's
+    count, which the kernel's seven products exceed), q, k, v, o, dO read
+    once, dq, dk, dv written once and the f32 lse read once."""
+    b, sq, sk, hq, hkv, hd, causal, window, q_off, dt = key
+    pairs = visible_pairs(sq, sk, causal, window, q_off)
     return 2.5 * 4.0 * hd * pairs * hq * b, float(dt.itemsize) * b * hd * (
         4 * sq * hq + 4 * sk * hkv) + 4.0 * b * hq * sq
 
 
+def sdpa_backward(q, k, v, do, causal: bool, window: int, q_off: int):
+    """The library's backward at a key, as a call: ``torch.autograd.grad``
+    of one bf16 SDPA output (its forward made here, outside any timing).
+    SDPA's ``is_causal`` is the offset-0 causal mask, so with a window or
+    at an offset it takes the mask as a boolean ``attn_mask``, shifted by
+    the offset."""
+    sq, hq, sk, hkv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    mask = None
+    if window or (causal and q_off):
+        qp = torch.arange(sq, device=q.device)[:, None] + q_off
+        kp = torch.arange(sk, device=q.device)[None, :]
+        mask = ((qp - kp < window) if window else True) & (
+            (qp >= kp) if causal else True)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=hq != hkv)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
 def measure_bwd(key, peaks) -> dict:
-    """The backward kernel at ``key`` against autograd of the plain
-    version in f32 on the same inputs, bit-equal over two runs, timed
-    beside the plain version and the library (the backward of bf16 SDPA
-    through ``torch.autograd.grad`` of one SDPA output, its forward
-    outside the timing; with a window, SDPA takes the causal window as a
-    boolean ``attn_mask``). One call between CUDA
-    events (median of 5) and device time (events around 5 back-to-back
-    calls, median of 3 rounds): a call at the big keys takes tens of
-    ms."""
+    """The backward kernel at ``key`` (its query offset included) against
+    autograd of the plain version in f32 on the same inputs, bit-equal
+    over two runs, timed beside the plain version and the library (the
+    backward of bf16 SDPA, ``sdpa_backward``). One call
+    between CUDA events (median of 5) and device time (events around 5
+    back-to-back calls, median of 3 rounds): a call at the big keys takes
+    tens of ms."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import forward_with_lse
-    b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
-    gen = torch.Generator(device="cuda").manual_seed(sq + sk + hq + hd)
+    b, sq, sk, hq, hkv, hd, causal, window, q_off, dt = key
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + hq + hd
+                                                     + q_off)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for shape in ((b, sq, hq, hd), (b, sk, hkv, hd),
                                  (b, sk, hkv, hd), (b, sq, hq, hd)))
-    o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window,
+                              q_offset=q_off)
     kern = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           q_offset=q_off)
     got, again = kern(), kern()
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     check(same, f"flash_attention_bwd at {key}: two runs differ")
-    want = fab.plain(q, k, v, do, causal=causal, window=window)
+    want = fab.plain(q, k, v, do, causal=causal, window=window,
+                     q_offset=q_off)
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g = g.float()
@@ -1938,20 +2281,9 @@ def measure_bwd(key, peaks) -> dict:
                   f"flash_attention_bwd {name} at {key}: max abs {err:.3e} "
                   f"(max |ref| {scale:.3e})")
     del got, again, want
-    plain = lambda: fab.plain(q, k, v, do, causal=causal, window=window)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    mask = None
-    if window:
-        qp = torch.arange(sq, device="cuda")[:, None]
-        kp = torch.arange(sk, device="cuda")[None, :]
-        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
-        enable_gqa=hq != hkv)
-    lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                      retain_graph=True)
+    plain = lambda: fab.plain(q, k, v, do, causal=causal, window=window,
+                              q_offset=q_off)
+    lib = sdpa_backward(q, k, v, do, causal, window, q_off)
     library, lib_dev = call_ms(lib, n=5), device_ms(lib, n=5, rounds=3)
     flops, nbytes = bwd_work(key)
     bms, bby = bound_ms(flops, nbytes, peaks, dt)
@@ -1983,7 +2315,7 @@ def measure_bwd(key, peaks) -> dict:
         f"({flops / r['device_ms'] / 1e9:.1f} TFLOP/s of the bound's work, "
         f"{bms / r['device_ms']:.2%} of the {bms:.4f} ms bound, {bby}); "
         f"plain {r['plain_ms']:.3f} ms; library"
-        + (" (a boolean window mask)" if window else "")
+        + (" (a boolean mask)" if window or (causal and q_off) else "")
         + f" {library:.3f} ms, device {lib_dev:.3f} ms, kernel / library "
         f"{r['device_ms'] / lib_dev:.2f}x; registers {r['registers']}, "
         f"spill bytes {r['spill_bytes']}")
@@ -4337,7 +4669,11 @@ def main() -> int:
         f"Yi-6B prefill vs plain {dense_plain_err:.2e}, decode vs prefill "
         f"{dense_consist_err:.2e}, prefill over {CP_SHARDS} shards vs the "
         f"ordinary prefill {cp_out['logit_err']:.2e} (requests "
-        f"{', '.join(f'{w:.4f}' for w in cp_out['walls'])} s); "
+        f"{', '.join(f'{w:.4f}' for w in cp_out['walls'])} s), its gradient "
+        f"at {cp_out['grad']['layers']} layers: the worst leaf "
+        f"{cp_out['grad']['worst_rel']:.2e} relative L2 from the ordinary "
+        f"prefill's (runs "
+        f"{', '.join(f'{w:.4f}' for w in cp_out['grad']['walls'])} s); "
         f"Qwen3-30B-A3B prefill vs plain "
         f"{moe_out['plain_err']:.2e}, decode vs prefill "
         f"{moe_out['consist_err']:.2e}, MoE block gather vs dense "

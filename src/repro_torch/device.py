@@ -21,14 +21,18 @@ any other goes through a pinned staging buffer first:
 
 PyTorch's pinned host allocator keeps each staging block until the copy
 that reads it has finished, so a staging buffer is dropped right after
-its copy is enqueued.
+its copy is enqueued. A registered slab is not one of its blocks: ``put``
+holds every source it did not stage, with an event recorded after its
+copy, until that event has completed (``HostToDevice.in_flight``), so the
+slab is never unregistered and freed while a queued copy still reads it,
+whoever drops the last view of it first.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import weakref
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,12 +62,18 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _unregister(ptr: int) -> None:
+    """Unpin a ``pinned_copy`` slab: runs just before numpy frees it."""
+    torch.cuda.cudart().cudaHostUnregister(ptr)
+
+
 def pinned_copy(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Copy host arrays into one page-aligned slab that is page-locked in
     place (``cudaHostRegister``) and return views of it, same names, same
     values, so the copy stream moves them to the card at the host link's
     rate with no staging copy. The slab is unregistered just before numpy
-    frees it, once no view of it is left."""
+    frees it, once no view of it is left and no copy from it is in flight
+    (``HostToDevice.put`` holds a view until its copy has landed)."""
     align = 4096
     offsets, total = {}, 0
     for name, a in arrays.items():
@@ -78,8 +88,7 @@ def pinned_copy(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     err = int(cudart.cudaHostRegister(slab.ctypes.data, total, 0))
     if err != 0:
         raise RuntimeError(f"cudaHostRegister failed with CUDA error {err}")
-    weakref.finalize(raw, cudart.cudaHostUnregister,
-                     slab.ctypes.data).atexit = False
+    weakref.finalize(raw, _unregister, slab.ctypes.data).atexit = False
     out = {}
     for name, a in arrays.items():
         view = slab[offsets[name]: offsets[name] + a.nbytes] \
@@ -91,10 +100,18 @@ def pinned_copy(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 class HostToDevice:
     """Host-array copies onto one device through its copy stream.
-    ``copied_bytes`` counts the bytes every instance has copied."""
+    ``copied_bytes`` counts the bytes every instance has copied.
+    ``in_flight`` holds (event, source) for each copy from page-locked
+    memory that PyTorch's allocator does not own (a ``pinned_copy`` view):
+    the source stays alive until the event, recorded after its copy, has
+    completed. It is shared by every instance, so an engine or a replica
+    dropped with copies queued still holds their sources; ``put`` and
+    ``mark`` drop the landed ones."""
 
     copied_bytes = 0
     _count_lock = threading.Lock()
+    in_flight: List[Tuple["torch.cuda.Event", torch.Tensor]] = []
+    _flight_lock = threading.Lock()
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -117,20 +134,40 @@ class HostToDevice:
             HostToDevice.copied_bytes += src.nbytes
         if not self.cuda:
             return src.clone()
-        if not src.is_pinned():
+        HostToDevice.release_landed()
+        registered = src.is_pinned()
+        if not registered:
             staging = torch.empty(src.shape, dtype=src.dtype,
                                   pin_memory=True)
             src = staging.copy_(src)
+        stream = torch.cuda.current_stream(self.device)
         out = src.to(self.device, non_blocking=True)
-        if torch.cuda.current_stream(self.device) != self.compute:
+        if registered:
+            landed = torch.cuda.Event()
+            landed.record(stream)
+            with HostToDevice._flight_lock:
+                HostToDevice.in_flight.append((landed, src))
+        if stream != self.compute:
             out.record_stream(self.compute)
         return out
+
+    @staticmethod
+    def release_landed() -> None:
+        """Drop the held sources whose copies have landed (outside the
+        lock: the last one of a slab unregisters it)."""
+        with HostToDevice._flight_lock:
+            held = HostToDevice.in_flight
+            done = [pair[0].query() for pair in held]
+            landed = [pair for pair, d in zip(held, done) if d]
+            held[:] = [pair for pair, d in zip(held, done) if not d]
+        del landed
 
     def mark(self, event: Optional["torch.cuda.Event"] = None):
         """Record ``event`` (a new one if None) on the copy stream: it
         completes once every copy enqueued so far has landed."""
         if not self.cuda:
             return None
+        HostToDevice.release_landed()
         event = event or torch.cuda.Event()
         event.record(self.stream)
         return event

@@ -3,7 +3,12 @@
 // lse [B,Hq,Sq] (f32, of the scaled and masked scores) and the output's
 // gradient do, it writes dq, dk and dv in q's dtype (f32 or bf16) with f32
 // sums. Causal and/or sliding window, GQA (dk and dv sum over the query
-// heads of their group), Sq != Sk, hd in {16, 32, 64, 128}. Two sets of
+// heads of their group), Sq != Sk, hd in {16, 32, 64, 128}. Query row i
+// sits at position i + q_base in both masks (a chunk of a longer sequence
+// whose k and v cover it: context-parallel prefill; 0 otherwise), key j at
+// j: the masks compare positions, while addresses and the row bound
+// (i < Sq) keep the row index. (q_base is this file's name for the
+// forward's q_off, since q_off names memory offsets here.) Two sets of
 // kernels behind one entry point, as in flash_attention.cu: f32 on the FMA
 // units, bf16 on the tensor cores (namespace tc).
 //
@@ -29,9 +34,16 @@
 // counts five. Masked pairs (the causal and window masks, keys past Sk,
 // queries past Sq) take P = 0 by a test, never by exp of -1e30 minus the
 // lse, so a row that sees no key (its lse is -1e30 or -inf) gives no
-// inf - inf: it gets a zero dq and adds nothing to dk and dv. (The plain
-// version spreads such a row's gradient evenly over v; no model path makes
-// one: they need a window shorter than Sq - Sk.)
+// inf - inf: it gets a zero dq and adds nothing to dk and dv. The
+// convention for such rows: the plain version (and the JAX package, whose
+// mask is the same finite -1e30) gives them a uniform softmax over every
+// key and so spreads their gradient evenly over v; the kernel gives them
+// none. The two agree on the rows that see a key, which is where the
+// tests hold them. No model path makes such a row: it needs a window
+// shorter than Sq - Sk + q_base, or a query offset past every key under
+// a window. A key that no query sees (at a cp shard, every key past the
+// shard's last position) gets exact zeros in dk and dv: its block's walk
+// is empty and writes its zero sums.
 //
 // What bounds it on an H100: operations. At the Yi-6B prefill key (2 x
 // 4096, 32 query and 4 KV heads of 128, causal) the gradient is 2.5 times
@@ -117,21 +129,23 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
+// whether query row qi (at position qi + q_base) sees key kj
 __device__ __forceinline__ bool visible(int qi, int kj, int sq, int sk,
-                                        int causal, int window) {
+                                        int causal, int window, int q_base) {
+  const int qp = qi + q_base;
   bool v = qi < sq && kj < sk;
-  if (causal) v = v && qi >= kj;
-  if (window) v = v && qi - kj < window;
+  if (causal) v = v && qp >= kj;
+  if (window) v = v && qp - kj < window;
   return v;
 }
 
-// whether any pair of the query tile at q0 and the key tile at k0 is
-// visible (the forward's test, on 64 x 64 tiles)
-__device__ __forceinline__ bool tile_visible(int q0, int k0, int causal,
+// whether any pair of the query tile at position qp0 and the key tile at
+// k0 is visible (the forward's test, on 64 x 64 tiles)
+__device__ __forceinline__ bool tile_visible(int qp0, int k0, int causal,
                                              int window) {
   bool v = true;
-  if (causal) v = q0 + BQ - 1 >= k0;
-  if (window) v = v && q0 - (k0 + BK - 1) < window;
+  if (causal) v = qp0 + BQ - 1 >= k0;
+  if (window) v = v && qp0 - (k0 + BK - 1) < window;
   return v;
 }
 
@@ -233,16 +247,19 @@ constexpr size_t dq_smem() {
 }
 
 // One block per (batch * kv head, key tile), the heaviest causal key tiles
-// (the first) launching first. Thread (ty, tx) of the 16 x 16 grid owns
-// keys ty + 16 i (i < 4); in the score tiles queries tx + 16 j, in dK and
-// dV columns tx * HD / 16 .. + HD / 16 - 1.
+// (the first; a query offset moves every query's causal run by the same
+// number of keys, so the first stay the heaviest) launching first. Thread
+// (ty, tx) of the 16 x 16 grid owns keys ty + 16 i (i < 4); in the score
+// tiles queries tx + 16 j, in dK and dV columns tx * HD / 16 .. + HD / 16
+// - 1.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dsum,
             T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int hq,
-            int hkv, int causal, int window, float scale, int nbkv) {
+            int hkv, int causal, int window, int q_base, float scale,
+            int nbkv) {
   constexpr int LD = HD + 4;
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) float smem[];
@@ -283,7 +300,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* d_h = dsum + ((size_t)b * hq + h) * sq;
     for (int qt = 0; qt < nqt; ++qt) {
       const int q0 = qt * BQ;
-      if (!tile_visible(q0, k0, causal, window)) continue;
+      if (!tile_visible(q0 + q_base, k0, causal, window)) continue;
       const size_t q_off = ((size_t)b * sq + q0) * q_stride + (size_t)h * HD;
       __syncthreads();  // the previous tile's reads are done
       load_tile<T, HD>(Qs, q + q_off, q_stride, sq - q0);
@@ -304,8 +321,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qr = tx + 16 * j;
-          const bool vis =
-              visible(q0 + qr, k0 + ty + 16 * i, sq, sk, causal, window);
+          const bool vis = visible(q0 + qr, k0 + ty + 16 * i, sq, sk,
+                                   causal, window, q_base);
           const float p = vis ? exp2f(fmaf(s[i][j], scale2, -lse2[qr])) : 0.f;
           Ps[(ty + 16 * i) * PS + qr] = p;
           dSs[(ty + 16 * i) * PS + qr] = p * (dp[i][j] - Ds[qr]);
@@ -332,16 +349,16 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block per (batch * head, query tile), the heaviest causal query
-// tiles (the last) launching first. Thread (ty, tx) owns queries
-// ty + 16 i; in the score tiles keys tx + 16 j, in dQ columns
-// tx * HD / 16 .. + HD / 16 - 1.
+// tiles (the last, at any query offset) launching first. Thread (ty, tx)
+// owns queries ty + 16 i; in the score tiles keys tx + 16 j, in dQ
+// columns tx * HD / 16 .. + HD / 16 - 1.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dsum,
           T* __restrict__ dq, int sq, int sk, int hq, int hkv, int causal,
-          int window, float scale, int nbh) {
+          int window, int q_base, float scale, int nbh) {
   constexpr int LD = HD + 4;
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) float smem[];
@@ -384,7 +401,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
-    if (!tile_visible(q0, k0, causal, window)) continue;
+    if (!tile_visible(q0 + q_base, k0, causal, window)) continue;
     const size_t kv_off = ((size_t)b * sk + k0) * kv_stride + (size_t)kvh * HD;
     __syncthreads();  // the previous tile's reads are done
     load_tile<T, HD>(Ks, k + kv_off, kv_stride, sk - k0);
@@ -400,8 +417,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qr = ty + 16 * i;
-        const bool vis =
-            visible(q0 + qr, k0 + tx + 16 * j, sq, sk, causal, window);
+        const bool vis = visible(q0 + qr, k0 + tx + 16 * j, sq, sk, causal,
+                                 window, q_base);
         const float p = vis ? exp2f(fmaf(s[i][j], scale2, -lse2[qr])) : 0.f;
         dSs[qr * PS + tx + 16 * j] = p * (dp[i][j] - Ds[qr]);
       }
@@ -434,7 +451,8 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, int q_base, float scale,
+           cudaStream_t stream) {
   static bool kv_done = false, q_done = false;
   int err = configure(dkdv_kernel<T, HD>, dkdv_smem<HD>(), kv_done);
   if (err) return err;
@@ -454,14 +472,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int nkt = (sk + BK - 1) / BK;
   dkdv_kernel<T, HD><<<nkt * b * hkv, THREADS, dkdv_smem<HD>(), stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      sq, sk, hq, hkv, causal, window, scale, b * hkv);
+      sq, sk, hq, hkv, causal, window, q_base, scale, b * hkv);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   const int nqt = (sq + BQ - 1) / BQ;
   dq_kernel<T, HD><<<nqt * b * hq, THREADS, dq_smem<HD>(), stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dq), sq, sk, hq, hkv,
-      causal, window, scale, b * hq);
+      causal, window, q_base, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,20 +487,21 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* dsum, void* dq,
              void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-             int hd, int causal, int window, float scale, cudaStream_t s) {
+             int hd, int causal, int window, int q_base, float scale,
+             cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
-                           sk, hq, hkv, causal, window, scale, s);
+                           sk, hq, hkv, causal, window, q_base, scale, s);
     case 32:
       return launch<T, 32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
-                           sk, hq, hkv, causal, window, scale, s);
+                           sk, hq, hkv, causal, window, q_base, scale, s);
     case 64:
       return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
-                           sk, hq, hkv, causal, window, scale, s);
+                           sk, hq, hkv, causal, window, q_base, scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
-                            sk, hq, hkv, causal, window, scale, s);
+                            sk, hq, hkv, causal, window, q_base, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -759,31 +778,35 @@ __device__ __forceinline__ uint32_t pack(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// whether query qi sees key kj
+// whether query row qi (at position qi + q_base) sees key kj
 __device__ __forceinline__ bool sees(int qi, int kj, int sq, int sk,
-                                     int causal, int window) {
+                                     int causal, int window, int q_base) {
+  const int qp = qi + q_base;
   bool v = qi < sq && kj < sk;
-  if (causal) v = v && qi >= kj;
-  if (window) v = v && qi - kj < window;
+  if (causal) v = v && qp >= kj;
+  if (window) v = v && qp - kj < window;
   return v;
 }
 
-// whether some query of [qa, qa + nq) sees some key of [ka, ka + nk)
-__device__ __forceinline__ bool tiles_meet(int qa, int nq, int ka, int nk,
+// whether some query of positions [qp, qp + nq) sees some key of
+// [ka, ka + nk)
+__device__ __forceinline__ bool tiles_meet(int qp, int nq, int ka, int nk,
                                            int causal, int window) {
   bool v = true;
-  if (causal) v = qa + nq - 1 >= ka;
-  if (window) v = v && qa - (ka + nk - 1) < window;
+  if (causal) v = qp + nq - 1 >= ka;
+  if (window) v = v && qp - (ka + nk - 1) < window;
   return v;
 }
 
-// whether every query of [qa, qa + 64) sees every key of [ka, ka + 64):
-// such a tile needs no mask
+// whether every query of rows [qa, qa + 64) (positions from qa + q_base)
+// sees every key of [ka, ka + 64): such a tile needs no mask
 __device__ __forceinline__ bool tile_full(int qa, int ka, int sq, int sk,
-                                          int causal, int window) {
+                                          int causal, int window,
+                                          int q_base) {
+  const int qp = qa + q_base;
   bool v = qa + 64 <= sq && ka + 64 <= sk;
-  if (causal) v = v && qa >= ka + 63;
-  if (window) v = v && qa + 63 - ka < window;
+  if (causal) v = v && qp >= ka + 63;
+  if (window) v = v && qp + 63 - ka < window;
   return v;
 }
 
@@ -793,7 +816,8 @@ __device__ __forceinline__ bool tile_full(int qa, int ka, int sq, int sk,
 // kk holds elements 8 kk + 2 r, + 1. P = exp2(s scale2 - lse2) where the
 // pair is visible (lse2 = lse log2 e of its query), else 0; dS = P (dp -
 // D). QROWS: the rows are queries (dQ) or keys (dK/dV, P^T and dS^T).
-// lse2(i) and dd(i) give the query values of element i.
+// lse2(i) and dd(i) give the query values of element i; query row qi sits
+// at position qi + q_base.
 template <bool QROWS, typename L, typename Dv>
 __device__ __forceinline__ void p_ds(const float (&s)[BN / 2],
                                      const float (&dp)[BN / 2],
@@ -801,7 +825,8 @@ __device__ __forceinline__ void p_ds(const float (&s)[BN / 2],
                                      uint32_t (&dsf)[BN / 16][4], bool full,
                                      int row0, int col0, int r0, int t2,
                                      float scale2, int sq, int sk,
-                                     int causal, int window, L lse2, Dv dd) {
+                                     int causal, int window, int q_base,
+                                     L lse2, Dv dd) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
@@ -814,8 +839,9 @@ __device__ __forceinline__ void p_ds(const float (&s)[BN / 2],
         if (!full) {
           const int row = row0 + r0 + 8 * ((i & 3) >> 1);
           const int col = col0 + 8 * (i >> 2) + t2 + (i & 1);
-          const bool vis = QROWS ? sees(row, col, sq, sk, causal, window)
-                                 : sees(col, row, sq, sk, causal, window);
+          const bool vis =
+              QROWS ? sees(row, col, sq, sk, causal, window, q_base)
+                    : sees(col, row, sq, sk, causal, window, q_base);
           v = vis ? v : 0.f;
         }
         p[x] = v;
@@ -827,10 +853,11 @@ __device__ __forceinline__ void p_ds(const float (&s)[BN / 2],
 }
 
 // One block per (batch * kv head, 128 keys), the heaviest causal key
-// blocks (the first) launching first. Warpgroup w owns keys k0 + 64 w ..
-// + 63 and walks, for each query head of the group in turn, the 64-query
-// tiles that the block's keys see; a thread owns key rows r0 and r0 + 8
-// of them, and in each 8 columns of S^T or dK, dV columns t2 and t2 + 1.
+// blocks (the first, at any query offset) launching first. Warpgroup w
+// owns keys k0 + 64 w .. + 63 and walks, for each query head of the group
+// in turn, the 64-query tiles that the block's keys see; a thread owns
+// key rows r0 and r0 + 8 of them, and in each 8 columns of S^T or dK, dV
+// columns t2 and t2 + 1.
 // K and V are loaded once; Q, dO and their queries' lse and D come
 // through the ring.
 template <int HD>
@@ -842,7 +869,7 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
             const float* __restrict__ lse, const float* __restrict__ dsum,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
             int sq, int sk, int hq, int hkv, int causal, int window,
-            float scale, int nbkv) {
+            int q_base, float scale, int nbkv) {
   constexpr int HDP = padded(HD);
   constexpr int MB = BM * HDP * 2;  // bytes of the K or V tile
   constexpr int NB = BN * HDP * 2;  // bytes of one Q or dO tile
@@ -872,11 +899,12 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* dob = dout + (size_t)b * sq * q_stride;
   const size_t kv_off = (size_t)b * sk * kv_stride + (size_t)kvh * HD;
 
-  // the query tiles the block's keys see form one run [first, last]
+  // the query tiles the block's keys see form one run [first, last],
+  // empty (n = 0) for keys no query sees: the block then writes zeros
   const int nqt = (sq + BN - 1) / BN;
   int first = nqt, last = -1;
   for (int t = 0; t < nqt; ++t)
-    if (tiles_meet(t * BN, BN, k0, BM, causal, window)) {
+    if (tiles_meet(t * BN + q_base, BN, k0, BM, causal, window)) {
       first = min(first, t);
       last = t;
     }
@@ -967,8 +995,9 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       const float* lse_t = rows + st * 2 * BN;
       const float* d_t = lse_t + BN;
       uint32_t pf[BN / 16][4], dsf[BN / 16][4];
-      p_ds<false>(s, dp, pf, dsf, tile_full(q0, kw, sq, sk, causal, window),
-                  kw, q0, r0, t2, scale2, sq, sk, causal, window,
+      p_ds<false>(s, dp, pf, dsf,
+                  tile_full(q0, kw, sq, sk, causal, window, q_base), kw, q0,
+                  r0, t2, scale2, sq, sk, causal, window, q_base,
                   [&](int i) {
                     return lse_t[8 * (i >> 2) + t2 + (i & 1)] * LOG2E;
                   },
@@ -1007,8 +1036,9 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // One block per (batch * head, 128 queries), the heaviest causal query
-// blocks (the last) launching first. Warpgroup w owns queries
-// q0 + 64 w .. + 63 and walks the 64-key tiles the block's queries see;
+// blocks (the last, at any query offset) launching first. Warpgroup w
+// owns queries q0 + 64 w .. + 63 and walks the 64-key tiles the block's
+// queries see;
 // a thread owns query rows r0 and r0 + 8 and, in each 8 columns of S or
 // dQ, columns t2 and t2 + 1. Q and dO are loaded once; K and V come
 // through the ring.
@@ -1020,7 +1050,7 @@ dq_kernel(const __nv_bfloat16* __restrict__ q,
           const __nv_bfloat16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dsum,
           __nv_bfloat16* __restrict__ dq, int sq, int sk, int hq, int hkv,
-          int causal, int window, float scale, int nbh) {
+          int causal, int window, int q_base, float scale, int nbh) {
   constexpr int HDP = padded(HD);
   constexpr int MB = BM * HDP * 2;  // bytes of the Q or dO tile
   constexpr int NB = BN * HDP * 2;  // bytes of one K or V tile
@@ -1054,7 +1084,7 @@ dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int nkt = (sk + BN - 1) / BN;
   int first = nkt, last = -1;
   for (int t = 0; t < nkt; ++t)
-    if (tiles_meet(q0, BM, t * BN, BN, causal, window)) {
+    if (tiles_meet(q0 + q_base, BM, t * BN, BN, causal, window)) {
       first = min(first, t);
       last = t;
     }
@@ -1134,8 +1164,9 @@ dq_kernel(const __nv_bfloat16* __restrict__ q,
 
       const int k0 = kt * BN;
       uint32_t pf[BN / 16][4], dsf[BN / 16][4];
-      p_ds<true>(s, dp, pf, dsf, tile_full(qw, k0, sq, sk, causal, window),
-                 qw, k0, r0, t2, scale2, sq, sk, causal, window,
+      p_ds<true>(s, dp, pf, dsf,
+                 tile_full(qw, k0, sq, sk, causal, window, q_base), qw, k0,
+                 r0, t2, scale2, sq, sk, causal, window, q_base,
                  [&](int i) { return l2[(i & 3) >> 1]; },
                  [&](int i) { return dd[(i & 3) >> 1]; });
 
@@ -1166,7 +1197,8 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, int q_base, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool kv_done = false, q_done = false;
   int err = configure(dkdv_kernel<HD>, smem, kv_done);
@@ -1188,34 +1220,35 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int nkb = (sk + BM - 1) / BM;
   dkdv_kernel<HD><<<nkb * b * hkv, THREADS, smem, stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      sq, sk, hq, hkv, causal, window, scale, b * hkv);
+      sq, sk, hq, hkv, causal, window, q_base, scale, b * hkv);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   const int nqb = (sq + BM - 1) / BM;
   dq_kernel<HD><<<nqb * b * hq, THREADS, smem, stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dq), sq, sk, hq, hkv,
-      causal, window, scale, b * hq);
+      causal, window, q_base, scale, b * hq);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* dsum, void* dq,
              void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-             int hd, int causal, int window, float scale, cudaStream_t s) {
+             int hd, int causal, int window, int q_base, float scale,
+             cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, sk,
-                        hq, hkv, causal, window, scale, s);
+                        hq, hkv, causal, window, q_base, scale, s);
     case 32:
       return launch<32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, sk,
-                        hq, hkv, causal, window, scale, s);
+                        hq, hkv, causal, window, q_base, scale, s);
     case 64:
       return launch<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, sk,
-                        hq, hkv, causal, window, scale, s);
+                        hq, hkv, causal, window, q_base, scale, s);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, sk,
-                         hq, hkv, causal, window, scale, s);
+                         hq, hkv, causal, window, q_base, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1226,23 +1259,26 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o, dout, dq, dk and dv are
 // contiguous in the layouts above; lse and dsum (scratch for D) are f32
-// [B, Hq, Sq]. Every output element is written. Returns a CUDA error code
-// (0 = none).
+// [B, Hq, Sq]. q_base >= 0 is the position of query row 0 in the masks
+// (the forward's q_off). Every output element is written. Returns a CUDA
+// error code (0 = none).
 extern "C" int fm_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* dsum, void* dq, void* dk, void* dv,
                                       int b, int sq, int sk, int hq, int hkv,
                                       int hd, int causal, int window,
-                                      float scale, int dtype, void* stream) {
+                                      int q_base, float scale, int dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || sq <= 0 || sk <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || sq <= 0 || sk <= 0 || hq <= 0 || hkv <= 0 ||
+      hq % hkv != 0 || q_base < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(dsum);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, dout, l, d, dq, dk, dv, b, sq, sk, hq,
-                           hkv, hd, causal, window, scale, s);
+                           hkv, hd, causal, window, q_base, scale, s);
   return tc::dispatch(q, k, v, o, dout, l, d, dq, dk, dv, b, sq, sk, hq, hkv,
-                      hd, causal, window, scale, s);
+                      hd, causal, window, q_base, scale, s);
 }

@@ -18,8 +18,9 @@ the ``[B, S, H, hd]`` layout of the JAX kernel; ``plain`` is the same
 function in plain PyTorch, which the CPU path runs and ``chip_smoke.py``
 holds the kernel against. ``FlashAttention.apply`` is the differentiable
 call: its forward launches the kernel with the rows' log-sum-exp kept
-(``forward_with_lse``), its backward launches ``flash_attention_bwd``. Under ``torch.utils.checkpoint`` the recomputed
-forward launches again and keeps its own log-sum-exp.
+(``forward_with_lse``), its backward launches ``flash_attention_bwd``,
+both at the call's query offset. Under ``torch.utils.checkpoint`` the
+recomputed forward launches again and keeps its own log-sum-exp.
 """
 from __future__ import annotations
 
@@ -61,10 +62,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, window: int = 0):
+                     causal: bool = True, window: int = 0,
+                     q_offset: int = 0):
     """``flash_attention`` that also returns each row's log-sum-exp of the
     scaled and masked scores, f32 [B,Hq,Sq], as the backward takes it."""
-    return _launch(q, k, v, causal, window, 0, with_lse=True)
+    return _launch(q, k, v, causal, window, q_offset, with_lse=True)
 
 
 def _launch(q, k, v, causal, window, q_offset, *, with_lse):
@@ -109,20 +111,15 @@ def _launch(q, k, v, causal, window, q_offset, *, with_lse):
 
 class FlashAttention(torch.autograd.Function):
     """The kernel with its gradient: forward ``forward_with_lse``,
-    backward ``flash_attention_bwd`` (dq, dk, dv in the inputs' dtype).
-    The backward kernel takes no query offset, so a nonzero ``q_offset``
-    raises."""
+    backward ``flash_attention_bwd`` (dq, dk, dv in the inputs' dtype),
+    both at ``q_offset``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int = 0):
-        if q_offset:
-            raise NotImplementedError(
-                f"q_offset={q_offset}: the flash_attention backward takes "
-                f"no query offset yet (ROADMAP.md §2); context-parallel "
-                f"prefill (ROADMAP.md §1) runs the forward only")
-        o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
+        o, lse = forward_with_lse(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return o
 
     @staticmethod
@@ -130,7 +127,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
-                                         window=ctx.window)
+                                         window=ctx.window,
+                                         q_offset=ctx.q_offset)
         return dq, dk, dv, None, None, None
 
 

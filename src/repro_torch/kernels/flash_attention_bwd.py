@@ -4,7 +4,7 @@ forward's output and its rows' log-sum-exp.
 The CUDA source is ``csrc/flash_attention_bwd.cu`` (three launches: D =
 rowsum(dO * O), then a dK/dV kernel over key tiles and a dQ kernel over
 query tiles, no atomics; bf16 on the tensor cores, f32 on the FMA
-units). It replaces no Pallas kernel: the JAX package
+units), at the forward's query offset. It replaces no Pallas kernel: the JAX package
 differentiates plain jnp attention with ``jax.value_and_grad``; the
 source's header says what bounds the kernel and what its design does.
 ``flash_attention_bwd`` launches it on CUDA tensors; ``plain`` is autograd
@@ -23,14 +23,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 # launches since the last reset, by the forward's key (B, Sq, Sk, Hq, Hkv,
-# hd, causal, window, q_offset, dtype), q_offset always 0 (the backward
-# takes no offset); one call is three CUDA launches
+# hd, causal, window, q_offset, dtype); one call is three CUDA launches
 launches: Counter = Counter()
 
 
@@ -48,11 +47,13 @@ def _ready(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: int = 0):
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
     """Launch the kernel: q, o, do [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] in one
     dtype (f32 or bf16) on one CUDA device, lse f32 [B,Hq,Sq] from
-    ``flash_attention.forward_with_lse``. Returns (dq, dk, dv) in q's
-    dtype."""
+    ``flash_attention.forward_with_lse`` at the same ``q_offset`` (>= 0:
+    query row i at position i + q_offset in the masks). Returns (dq, dk,
+    dv) in q's dtype; a key that no query sees gets zeros."""
     tensors = (q, k, v, o, lse, do)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_attention_bwd needs every input on one CUDA "
@@ -76,6 +77,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.dtype != torch.float32 or lse.shape != (b, hq, sq):
         raise ValueError(f"lse must be f32 {(b, hq, sq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash_attention_bwd takes an int q_offset >= 0, "
+                         f"got {q_offset!r}")
     q, k, v, o, lse, do = (_ready(t) for t in tensors)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
@@ -85,21 +89,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, hd,
-        int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        int(bool(causal)), int(window), q_offset, 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention_bwd", err)
-    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window), 0,
+    launches[(b, sq, sk, hq, hkv, hd, bool(causal), int(window), q_offset,
               q.dtype)] += 1
     return dq, dk, dv
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          do: torch.Tensor, *, causal: bool = True, window: int = 0):
+          do: torch.Tensor, *, causal: bool = True, window: int = 0,
+          q_offset: int = 0):
     """(dq, dk, dv) in f32: autograd through ``flash_attention_ref`` on q, k
-    and v widened to f32, for the output gradient ``do``."""
+    and v widened to f32, at ``q_offset``, for the output gradient
+    ``do``. A row that sees no key has a uniform softmax over every key
+    here (the finite mask), so its gradient reaches dk and dv, where the
+    kernel gives it none."""
     with torch.enable_grad():
         qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                                  q_offset=q_offset)
         return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 

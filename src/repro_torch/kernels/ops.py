@@ -96,7 +96,7 @@ def launch_counts_by_shape() -> Dict[str, Counter]:
     """Launches per kernel, by the shape key its wrapper counts under:
     (M, K, N) for ``streamed_matmul``, (B, Sq, Sk, Hq, Hkv, hd, causal,
     window, q_offset, dtype) for ``flash_attention`` and
-    ``flash_attention_bwd`` (whose q_offset is always 0),
+    ``flash_attention_bwd`` (the backward under its forward's key),
     (B, S, H, P, N, Q) for ``ssd_scan`` and ``ssd_scan_bwd`` and (R, C,
     tr, tc, dtype) for ``layout_pack``. The dtype keeps an f32 launch
     apart from a bf16 one of the same shape."""

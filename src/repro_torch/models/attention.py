@@ -15,7 +15,8 @@ the port has neither: it computes the function through
 ``flash_attention_ref`` on a CPU one. ``full_attention`` is that plain
 version. ``q_offset`` places a query chunk at its absolute position in
 the sequence, as context-parallel prefill (``models.context_parallel``)
-passes it; both kernels take it.
+passes it; both kernels take it, and so does the backward kernel, so the
+call has a gradient at any offset, as the JAX package's does.
 
 ``decode_attention`` is plain PyTorch, as the JAX package computes it in
 jnp outside any Pallas kernel, so it has no kernel to port. It keeps that

@@ -14,9 +14,11 @@ layer: layer ``l``'s K/V gather needs every shard's layer-``l`` K/V, so the
 loop over shards sits inside the loop over layers. The weight gathers are
 identities (one device holds every weight whole) and the K/V gather is a
 concatenation along the sequence. Each shard's attention is one
-``flash_attention`` launch at the shard's offset on the card. At one shard
-the calls are those of ``transformer.prefill``, in its order, so the
-logits are bit for bit the ordinary prefill's.
+``flash_attention`` launch at the shard's offset on the card; under
+autograd its gradient is one ``flash_attention_bwd`` launch at that
+offset, so ``cp_prefill`` is differentiable, as the JAX package's is. At
+one shard the calls are those of ``transformer.prefill``, in its order,
+so the logits are bit for bit the ordinary prefill's.
 """
 from __future__ import annotations
 

@@ -151,21 +151,6 @@ def test_flash_attention_shard_rows_equal_the_whole_call(dev, window, dtype):
         assert torch.equal(part, whole[:, off:off + 256]), off
 
 
-def test_flash_attention_gradient_at_an_offset_raises(dev):
-    """The backward kernel takes no query offset: a call that needs a
-    gradient at a nonzero offset raises, at offset 0 it runs."""
-    rng = np.random.default_rng(3)
-    q = _normal(rng, (1, 64, 4, 64)).to(dev, torch.bfloat16).requires_grad_()
-    k, v = (_normal(rng, (1, 128, 2, 64)).to(dev, torch.bfloat16)
-            for _ in range(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.attention(q, k, v, q_offset=64)
-    ops.attention(q, k[:, :64], v[:, :64]).sum().backward()
-    assert q.grad is not None
-    with torch.no_grad():
-        ops.attention(q, k, v, q_offset=64)
-
-
 # the Yi-6B head layout at length, a ragged GQA group of 8 under every
 # mask, and more keys than queries
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window", [
@@ -294,6 +279,45 @@ def test_copy_path_pinned_and_staged(dev):
     h2d.wait(h2d.mark())
     assert torch.equal(got.cpu(), torch.from_numpy(host[64:128]))
     assert torch.equal(got2.cpu(), torch.from_numpy(staged))
+
+
+def test_pinned_slab_outlives_the_copies_queued_from_it(dev, monkeypatch):
+    """A ``pinned_copy`` slab whose every view is dropped while a copy from
+    it is still queued (the copy stream held busy by a sleep kernel) is not
+    unregistered until that copy's event has completed; then the next
+    ``mark`` releases it, and the copy holds the slab's values."""
+    import gc
+    from repro_torch import device as dv
+    unregistered = []
+    real = dv._unregister
+    ours = {}
+
+    def spy(ptr):
+        # whether the copy had landed when this slab was unregistered
+        if ptr == ours.get("ptr"):
+            unregistered.append(ours["event"].query())
+        real(ptr)
+    monkeypatch.setattr(dv, "_unregister", spy)
+    torch.cuda.synchronize()
+    dv.HostToDevice.release_landed()
+    host = np.random.default_rng(0).standard_normal(
+        64 << 20, dtype=np.float32)             # 256 MiB
+    slab = dv.pinned_copy({"w": host})
+    ours["ptr"] = slab["w"].ctypes.data
+    h2d = dv.HostToDevice(dev)
+    with h2d.copies():
+        torch.cuda._sleep(1 << 30)              # about half a second
+        out = h2d.put(slab["w"])
+    ours["event"] = h2d.mark()
+    del slab
+    gc.collect()
+    assert not ours["event"].query(), "the copy landed before the check"
+    assert unregistered == []
+    ours["event"].synchronize()
+    h2d.mark()
+    gc.collect()
+    assert unregistered == [True]
+    assert torch.equal(out.cpu(), torch.from_numpy(host))
 
 
 def test_executors_on_the_card(dev):
@@ -1078,30 +1102,119 @@ def test_flash_attention_bwd_f32_outputs_are_unchanged(
         (b, sq, sk, hq, hkv, hd, causal, window)]
 
 
+# (Sq, Sk, q_offset, window): the rows at positions past the last key by
+# the window or more see no key; the first blind row is Sk + window - 1 -
+# q_offset. At offset 48 over 32 keys every row is blind.
+@pytest.mark.parametrize("sq,sk,off,window", [
+    (96, 40, 0, 16), (96, 64, 32, 16), (32, 32, 48, 8)],
+    ids=["offset0", "offset32", "all-blind"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_flash_attention_bwd_row_that_sees_no_key(dev, dtype):
-    """A window shorter than Sq - Sk leaves the last rows without a key:
-    their dq is zero, nothing is inf or NaN, and the rows that see keys
-    keep the plain version's gradient (f32 within 1e-4; bf16, on the
-    tensor-core kernels, within the bf16 bounds)."""
+def test_flash_attention_bwd_row_that_sees_no_key(dev, dtype, sq, sk, off,
+                                                  window):
+    """A window shorter than Sq - Sk + q_offset leaves the last rows
+    without a key: their dq is zero, nothing is inf or NaN, and the rows
+    that see keys keep the plain version's gradient (f32 within 1e-4;
+    bf16, on the tensor-core kernels, within the bf16 bounds). The plain
+    version gives a blind row a uniform softmax over every key, so it is
+    held on the seen rows only; where no row sees a key, dk and dv are
+    zero. The forward gives a blind row's lse the log of an empty sum
+    (-inf) where its query tile meets no key tile, else about -1e30 (the
+    masked scores): never NaN or +inf."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import forward_with_lse
     rng = np.random.default_rng(3)
     dt = DTYPES[dtype]
-    q, k, v, do = _bwd_inputs(rng, 1, 96, 40, 2, 2, 64, dt, dev)
-    o, lse = forward_with_lse(q, k, v, causal=True, window=16)
+    q, k, v, do = _bwd_inputs(rng, 1, sq, sk, 2, 2, 64, dt, dev)
+    o, lse = forward_with_lse(q, k, v, causal=True, window=window,
+                              q_offset=off)
     dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                         window=16)
-    assert all(torch.isfinite(t).all() for t in (dq, dk, dv, lse))
-    blind = slice(40 + 16 - 1, 96)        # rows q with q - 39 >= 16
-    assert torch.count_nonzero(dq[:, blind]) == 0
-    seen = slice(0, 40 + 16 - 1)
-    want = fab.plain(q[:, seen], k, v, do[:, seen], causal=True, window=16)
+                                         window=window, q_offset=off)
+    first_blind = max(0, sk + window - 1 - off)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    assert torch.isfinite(lse[:, :, :first_blind]).all()
+    assert bool((lse[:, :, first_blind:] < -1e29).all())
+    assert torch.count_nonzero(dq[:, first_blind:]) == 0
+    if first_blind == 0:
+        assert torch.count_nonzero(dk) == 0 and torch.count_nonzero(dv) == 0
+        return
+    seen = slice(0, first_blind)
+    want = fab.plain(q[:, seen], k, v, do[:, seen], causal=True,
+                     window=window, q_offset=off)
     if dt == torch.bfloat16:
         _grads_close((dq[:, seen], dk, dv), want, dt)
         return
     for got, w in zip((dq[:, seen], dk, dv), want):
         torch.testing.assert_close(got, w, atol=1e-4, rtol=1e-4)
+
+
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window, q_offset, dtype): the four
+# shards of Yi-6B's context-parallel prefill (1024 queries over 4096 keys),
+# a ragged bf16 chunk under a window at an offset that is no tile
+# multiple, and two f32 chunks (the FMA kernels), one under a window
+FA_BWD_OFFSET_CASES = [
+    *((2, 1024, 4096, 32, 4, 128, True, 0, off, torch.bfloat16)
+      for off in (0, 1024, 2048, 3072)),
+    (1, 200, 700, 8, 2, 128, True, 96, 450, torch.bfloat16),
+    (1, 100, 300, 4, 2, 64, True, 0, 150, torch.float32),
+    (1, 96, 320, 4, 4, 32, True, 64, 130, torch.float32)]
+
+
+@pytest.mark.parametrize("key", FA_BWD_OFFSET_CASES, ids=str)
+def test_flash_attention_bwd_at_an_offset(dev, key):
+    """The backward kernel at a query offset against autograd of the plain
+    version at that offset (``_grads_close``'s bounds), two runs bit-equal,
+    the launch counted under its offset, and exact zeros in dk and dv for
+    every key that no query sees (past the chunk's last position, or before
+    its first by the window: three quarters of the keys at the first cp
+    shard)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import forward_with_lse
+    b, sq, sk, hq, hkv, hd, causal, window, off, dt = key
+    rng = np.random.default_rng(sq + sk + off)
+    q, k, v, do = _bwd_inputs(rng, b, sq, sk, hq, hkv, hd, dt, dev)
+    o, lse = forward_with_lse(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+    ops.reset_launch_counts()
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window, q_offset=off)
+    again = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {key: 2}
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    qp = torch.arange(sq, device=dev)[:, None] + off
+    kp = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= qp - kp < window
+    unseen = ~mask.any(0)         # none at the last cp shard
+    for t in got[1:]:
+        assert torch.count_nonzero(t[:, unseen]) == 0
+    _grads_close(got, fab.plain(q, k, v, do, causal=causal, window=window,
+                                q_offset=off), dt)
+    with pytest.raises(ValueError, match="q_offset"):
+        fab.flash_attention_bwd(q, k, v, o, lse, do, q_offset=-1)
+
+
+def test_attention_with_grad_at_an_offset_launches_both_kernels(dev):
+    """``ops.attention`` under autograd at a query offset goes through
+    ``FlashAttention``: both kernels launch at the offset's key and the
+    gradients match the plain version's at that offset."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    rng = np.random.default_rng(4)
+    q, k, v, _ = _bwd_inputs(rng, 1, 64, 192, 4, 2, 64, torch.bfloat16, dev)
+    do = _normal(rng, (1, 64, 4, 64)).to(dev, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    ops.attention(q, k, v, q_offset=128).backward(do)
+    torch.cuda.synchronize()
+    key = (1, 64, 192, 4, 2, 64, True, 0, 128, torch.bfloat16)
+    assert ops.launch_counts_by_shape()["flash_attention"] == {key: 1}
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {key: 1}
+    _grads_close((q.grad, k.grad, v.grad),
+                 fab.plain(q, k, v, do, q_offset=128), torch.bfloat16)
 
 
 def test_attention_with_grad_launches_both_kernels(dev):

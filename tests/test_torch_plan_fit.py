@@ -9,9 +9,11 @@ The two planners give the same per-model peaks bit for bit at every
 rate (near 880 FLOP for each byte streamed), the loads can no longer hide
 behind compute, LC-OPG preloads past the budget and neither plan fits:
 the 1.3B model's planned peak jumps from about 2138 MB to 2173.7 MB, and
-past that to 3440.4 MB. No calibration that the card has printed lies
-past the threshold. Neither engine reads ``fits_budget()`` before it
-runs a plan (``tests/test_torch_pool_overrun.py`` runs both engines on
+past that to 3440.4 MB. One calibration the card has printed lies past
+the threshold (1011.4 FLOP a streamed byte, a host copy rate of 39.0
+GB/s): there both planners give the 1.3B model 3386.9 MB, and phase 5's
+pool ran over its budget. Neither engine reads ``fits_budget()`` before
+it runs a plan (``tests/test_torch_pool_overrun.py`` runs both engines on
 such a plan).
 """
 import pytest
@@ -27,12 +29,13 @@ from repro_torch.core.plan import plan_multi_model
 
 MODELS = ("gptneo-1.3b", "gptneo-s")
 SEQ, CHUNK, BUDGET = 1024, 1 << 20, 2048 << 20
-# (peak_flops, hbm_bw, stream_bw): four that phase 5 printed on the H100
+# (peak_flops, hbm_bw, stream_bw): five that phase 5 printed on the H100
 # (its "[serve] planned with" lines; the first, at 867.1 FLOP a streamed
-# byte, the nearest to the threshold the card has printed), then
-# round-number calibrations on either side of the threshold, which the
-# card has not printed; with the 1.3B model's planned peak in MB and
-# whether the plan fits the budget
+# byte, the nearest under the threshold the card has printed; the fifth,
+# at 1011.4, the one past it, printed when the pool ran over its budget),
+# then round-number calibrations on either side of the threshold; with
+# the 1.3B model's planned peak in MB and whether the plan fits the
+# budget
 CASES = [((35007231310523.957, 2095056827709.6345, 40374102065.861244),
           2142.2, True),
          ((35620415632564.55, 2258645061038.675, 45675652730.75533),
@@ -41,6 +44,8 @@ CASES = [((35007231310523.957, 2095056827709.6345, 40374102065.861244),
           2138.0, True),
          ((35681970495867.3, 2183396194313.5974, 52908949552.26515),
           1194.2, True),
+         ((39475801829584.78, 2457120152138.118, 39032758080.86753),
+          3386.9, False),
          ((3.6e13, 2.2e12, 4.2e10), None, True),
          ((3.7e13, 2.2e12, 4.2e10), 2173.7, False),
          ((4.0e13, 2.2e12, 3.8e10), 3440.4, False),

@@ -3,9 +3,12 @@
     python3 tools/flash_attention_bwd_compare.py OLD.cu NEW.cu
 
 Builds both sources (each with the C interface of
-``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``) and, at every key
-of ``chip_smoke.BWD_KEYS`` (the training paths' keys, a window and an f32
-case), on inputs made from a seed with the forward's ``o`` and ``lse``:
+``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, with or without
+its query offset ``q_base``, which a source without it cannot take) and,
+at every key of ``chip_smoke.BWD_KEYS`` (the training paths' keys, a
+window and an f32 case, the four cp shard keys of phase 7f(d) and two
+keys at an offset), on inputs made from a seed with the forward's ``o``
+and ``lse``:
 
 * holds each version's dq, dk and dv against ``flash_attention_bwd.plain``
   (autograd of the plain version in f32) with the smoke's bounds: bf16
@@ -18,7 +21,10 @@ case), on inputs made from a seed with the forward's ``o`` and ``lse``:
   calls, median of 3 rounds) in the order old, new, new, old, twice, and
   prints the medians, their ratio, the share of the key's tensor-core or
   FMA bound and the factor against the backward of SDPA (timed in the
-  same call, as ``chip_smoke.measure_bwd`` times it).
+  same call, ``chip_smoke.sdpa_backward``).
+
+At a nonzero offset a version without ``q_base`` is skipped: only the
+other is checked and timed (new, new, twice).
 
 ``--digests`` prints, at ``tests/test_torch_cuda.py::FA_BWD_CASES`` in
 f32, the SHA-256 of each version's outputs on the inputs of that file's
@@ -52,22 +58,32 @@ OUT = ROOT / "build" / "fa_bwd_compare"
 CALLS, ROUNDS = 5, 3
 
 
-def entry(lib: Path):
+def entry(lib: Path, source: str):
+    """(the entry point, whether it takes the query offset after the
+    window)."""
+    takes_off = "int q_base" in source
+    types = list(fab._ARGTYPES)   # 10 pointers, 9 ints (q_base the last)
+    if not takes_off:
+        del types[18]
     fn = ctypes.CDLL(str(lib)).fm_flash_attention_bwd
-    fn.argtypes = fab._ARGTYPES
+    fn.argtypes = types
     fn.restype = ctypes.c_int
-    return fn
+    return fn, takes_off
 
 
-def launch(fn, q, k, v, o, lse, do, causal, window):
+def launch(fn, q, k, v, o, lse, do, causal, window, q_off=0):
     """dq, dk, dv of one call of the entry point ``fn``."""
+    fn, takes_off = fn
+    if q_off and not takes_off:
+        raise ValueError("this version takes no query offset")
     b, sq, hq, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty_like(lse)
+    off = (q_off,) if takes_off else ()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], hq, k.shape[2],
-             hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+             hd, int(causal), int(window), *off, 1.0 / math.sqrt(hd),
              fab._DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
@@ -115,26 +131,6 @@ def device_ms(fn) -> float:
     return float(np.median(times))
 
 
-def sdpa_backward(q, k, v, do, causal, window):
-    """The library's backward at the key, as ``chip_smoke.measure_bwd``
-    calls it: ``torch.autograd.grad`` of one SDPA output."""
-    b, sq, hq, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    mask = None
-    if window:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(sk, device=q.device)[None, :]
-        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
-        enable_gqa=hq != hkv)
-    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                       retain_graph=True)
-
-
 def digests(fns, dev) -> None:
     """The f32 outputs' SHA-256 at FA_BWD_CASES on the inputs of
     ``test_flash_attention_bwd_kernel``."""
@@ -165,24 +161,29 @@ def main(argv) -> int:
     peaks = cs.card_peaks(line)
     sources = {name: Path(path).read_text()
                for name, path in zip(("old", "new"), argv)}
-    fns = {name: entry(lib) for name, lib in build(sources, OUT).items()}
+    fns = {name: entry(lib, sources[name])
+           for name, lib in build(sources, OUT).items()}
     dev = torch.device("cuda:0")
     if want_digests:
         digests(fns, dev)
     for key in cs.BWD_KEYS:
-        b, sq, sk, hq, hkv, hd, causal, window, _, dt = key
-        gen = torch.Generator(device="cpu").manual_seed(sq + sk + hq + hd)
+        b, sq, sk, hq, hkv, hd, causal, window, q_off, dt = key
+        gen = torch.Generator(device="cpu").manual_seed(sq + sk + hq + hd
+                                                        + q_off)
         q, k, v, do = (torch.randn(s, generator=gen).to(dev, dt)
                        for s in ((b, sq, hq, hd), (b, sk, hkv, hd),
                                  (b, sk, hkv, hd), (b, sq, hq, hd)))
-        o, lse = forward_with_lse(q, k, v, causal=causal, window=window)
-        want = fab.plain(q, k, v, do, causal=causal, window=window)
+        o, lse = forward_with_lse(q, k, v, causal=causal, window=window,
+                                  q_offset=q_off)
+        want = fab.plain(q, k, v, do, causal=causal, window=window,
+                         q_offset=q_off)
         label = f"{(b, sq, sk, hq, hkv, hd)} causal={causal} " \
-            f"window={window} {dt}"
+            f"window={window} q_offset={q_off} {dt}"
+        here = {n: fn for n, fn in fns.items() if fn[1] or not q_off}
         outs = {}
-        for name, fn in fns.items():
-            got = launch(fn, q, k, v, o, lse, do, causal, window)
-            again = launch(fn, q, k, v, o, lse, do, causal, window)
+        for name, fn in here.items():
+            got = launch(fn, q, k, v, o, lse, do, causal, window, q_off)
+            again = launch(fn, q, k, v, o, lse, do, causal, window, q_off)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{name} at {label}: two runs differ")
@@ -190,30 +191,39 @@ def main(argv) -> int:
             outs[name] = got
             print(f"[{label}] {name}: worst relative L2 {rel:.3e}; two runs "
                   f"bit-equal", flush=True)
-        same = all(torch.equal(x, y) for x, y in zip(outs["old"],
-                                                     outs["new"]))
-        print(f"[{label}] old and new outputs bit-equal: {same}", flush=True)
+        if len(outs) == 2:
+            same = all(torch.equal(x, y) for x, y in zip(outs["old"],
+                                                         outs["new"]))
+            print(f"[{label}] old and new outputs bit-equal: {same}",
+                  flush=True)
+        else:
+            print(f"[{label}] only {list(outs)} takes the offset", flush=True)
         if dt == torch.float32:
-            for name in ("old", "new"):
+            for name in outs:
                 print(f"[{label}] {name} sha256 {digest(outs[name])}",
                       flush=True)
         del outs, want
-        times = {"old": [], "new": []}
+        times = {name: [] for name in here}
         for rnd in range(2):
             for name in ("old", "new", "new", "old"):
-                ms = device_ms(lambda: launch(fns[name], q, k, v, o, lse, do,
-                                              causal, window))
+                if name not in here:
+                    continue
+                ms = device_ms(lambda: launch(here[name], q, k, v, o, lse, do,
+                                              causal, window, q_off))
                 times[name].append(ms)
                 print(f"[{label}] round {rnd} {name}: {ms:.4f} ms",
                       flush=True)
-        lib_ms = device_ms(sdpa_backward(q, k, v, do, causal, window))
-        old, new = (float(np.median(times[n])) for n in ("old", "new"))
+        lib_ms = device_ms(cs.sdpa_backward(q, k, v, do, causal, window,
+                                            q_off))
+        med = {n: float(np.median(t)) for n, t in times.items()}
         bms, bby = cs.bound_ms(*cs.bwd_work(key), peaks, dt)
-        print(f"[{label}] median old {old:.4f} ms, new {new:.4f} ms, "
-              f"new / old {new / old:.4f}; bound {bms:.4f} ms ({bby}): old "
-              f"{bms / old:.2%}, new {bms / new:.2%}; SDPA backward "
-              f"{lib_ms:.4f} ms: old {old / lib_ms:.2f}x, new "
-              f"{new / lib_ms:.2f}x", flush=True)
+        print(f"[{label}] " + ", ".join(
+            f"median {n} {ms:.4f} ms ({bms / ms:.2%} of the bound, "
+            f"{ms / lib_ms:.2f}x SDPA's backward)" for n, ms in med.items())
+            + (f", new / old {med['new'] / med['old']:.4f}"
+               if len(med) == 2 else "")
+            + f"; bound {bms:.4f} ms ({bby}); SDPA backward {lib_ms:.4f} ms",
+            flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return 0
